@@ -3,24 +3,34 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the fused dual-camera tracking step
-(orbslam2_dualcam_tpu_torch.pipeline.frontend.make_track_fn), at the
-reference's operating point: 2 x 640 x 480 frames, 1300 features per
-camera, 8 levels x 1.2, a 2048-slot map store and a random vocabulary tree
-of ORBvoc's shape (k=10, depth 6).  Phases, each raising on failure:
+Drives the port's main paths, the fused dual-camera tracking step
+(orbslam2_dualcam_tpu_torch.pipeline.frontend.make_track_fn) and its
+batched form (make_track_batch_fn), at the reference's operating point:
+2 x 640 x 480 frames, 1300 features per camera, 8 levels x 1.2, a 2048-slot
+map store and a random vocabulary tree of ORBvoc's shape (k=10, depth 6).
+Phases, each raising on failure:
 
   1. card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels from csrc/ with nvcc (sm_90a);
-  3. K1 (fast_nms) against its plain torch version on the card, at all 8
-     main-path level shapes for two cameras and a non-tile-aligned shape;
+  3. K1 (fast_nms) against its plain torch version on the card: the
+     one-level entry at all 8 main-path level shapes for two cameras and a
+     non-tile-aligned shape, and the pyramid entry (one launch for all 8
+     levels) per level, on u8-valued and on random float input, bit-exact;
   4. track a rendered 12-frame orbit: seed the store from frame 0 with
      ground-truth depth, chain frames 1-11 through the step, hold poses and
-     match counts to fixed bounds, count 8 K1 launches per frame,
+     match counts to fixed bounds, count one K1 launch per frame,
      re-run frame 1 on the host CPU as a cross-check, and run one step with
      host synchronization forbidden;
-  5. timing with CUDA events: the step's median ms/frame on the rendered
+  5. the batched path: frames 1-4 through make_track_batch_fn, every output
+     held equal to the same frames of phase 4 run one by one, one K1 launch
+     per frame counted, and one batch run with host synchronization
+     forbidden;
+  6. timing with CUDA events: the step's median ms/frame on the rendered
      chain and on 20 random frames (worst case: the widened retry always
-     engages), a per-stage split, and K1 against its plain version.
+     engages), a per-stage split, the batched path's ms/frame beside the
+     one-frame path's in alternating runs, and K1 (the pyramid launch, the
+     eight one-level launches, level 0 alone) against its plain version and
+     its bound.
 
 The last line of standard output is a JSON object with "ok": true; it is
 printed only when every phase passed.  There is no CPU path: without a
@@ -41,7 +51,7 @@ import torch
 from orbslam2_dualcam_tpu_torch import _build, dual_default
 from orbslam2_dualcam_tpu_torch.ops import fast_nms as k1
 from orbslam2_dualcam_tpu_torch.ops.camera import make_rig
-from orbslam2_dualcam_tpu_torch.ops.orb import level_shapes
+from orbslam2_dualcam_tpu_torch.ops.orb import _tables, build_pyramid, level_shapes
 from orbslam2_dualcam_tpu_torch.optim import pose_opt
 from orbslam2_dualcam_tpu_torch.pipeline import frontend
 from orbslam2_dualcam_tpu_torch.utils import synthetic
@@ -50,6 +60,24 @@ from orbslam2_dualcam_tpu_torch.vocab.bow import Vocabulary
 
 H, W = 480, 640
 N_FRAMES = 12
+DEPTH = 4                           # frames per batch of the batched path
+TH_HI, TH_LO = 20.0, 7.0            # FAST thresholds of the main path
+# K1's bound (the least time the card could take for the same function).
+# Bytes: each pixel read once, both outputs written once.  Operations, per
+# pixel: 16 circle differences; for each of them and each polarity a
+# compare, a subtract, a conditional add and a mask insert (128); two
+# run-of-9 tests of 4 shifts, 4 ANDs and a test (18); the low score, the
+# blend and sad_lo (6); 8 max, a compare and a select for the NMS (10).
+# Where a low-threshold arc exists (counted from this run's data), one
+# polarity again at the high threshold: 16 x 4, a run-of-9 test, a select.
+# None of these fuse into multiply-adds, so the rate is one operation per
+# lane and clock: half of the card's 67 TFLOP/s f32 peak, which counts a
+# multiply-add as two.
+K1_BYTES_PER_PIXEL = 12
+K1_OPS_PER_PIXEL = 16 + 128 + 18 + 6 + 10
+K1_OPS_PER_ARC = 64 + 9 + 2
+H100_BYTES_PER_S = 3.35e12
+H100_SIMPLE_OPS_PER_S = 67e12 / 2
 STEP_RAD = 1.2 * math.pi / 90       # per-frame yaw of the orbit (2.4 deg)
 # Bounds on every tracked frame (1-11).  Set from the same full-size
 # sequence run through the port on a host CPU (and on the card, which
@@ -93,14 +121,19 @@ def pose_errors(T_cw: np.ndarray, T_gt: np.ndarray):
 
 
 class Scene:
-    """The rendered orbit, the vocabulary and the seeded store on one
-    device."""
+    """The rendered orbit, the vocabulary and the seeded store on the
+    card.  The rig, the step and the batched step are built with no
+    `device` argument: the entry points' default is the current CUDA
+    device, which must be `device`."""
 
     def __init__(self, cfg, device, seed: int = 1):
         rng = np.random.default_rng(seed)
         self.cfg, self.device = cfg, device
         self.n_feats, self.cap = cfg.orb.n_track, cfg.tracker.fused_cap
-        self.rig = make_rig(cfg, device)
+        self.rig = make_rig(cfg)
+        if self.rig.K.device != device:
+            raise AssertionError(f"make_rig() landed on {self.rig.K.device}, "
+                                 f"not on {device}")
         self.voc = random_vocabulary(rng, 10, 6, cfg.vocab.direct_index_level,
                                      device)
         self.world = synthetic.make_box_world(rng, half=6.0)
@@ -110,8 +143,9 @@ class Scene:
         self.frames = [np.clip(np.round(synthetic.render_rig(
             self.world, K, T_sc, T, H=H, W=W)), 0, 255).astype(np.uint8)
             for T in self.poses]
-        self.step = frontend.make_track_fn(cfg, self.n_feats, self.voc,
-                                           self.rig, device)
+        self.step = frontend.make_track_fn(cfg, self.n_feats, self.voc, self.rig)
+        self.batch = frontend.make_track_batch_fn(cfg, self.n_feats, self.voc,
+                                                  self.rig, DEPTH)
         f = frontend._extract_frame_body(
             torch.as_tensor(self.frames[0], device=device), cfg, self.n_feats,
             self.voc, self.rig).feats
@@ -135,36 +169,64 @@ class Scene:
                 torch.as_tensor(self.store.slots, device=device))
 
 
+def k1_inputs(rng, world, h: int, w: int):
+    """[("u8-valued", rendered [2, h, w]), ("random", uniform floats)]."""
+    K = np.array([[500.0 * w / W, 0, w / 2], [0, 500.0 * h / H, h / 2], [0, 0, 1]])
+    rendered = np.round(synthetic.render_rig(
+        world, np.stack([K, K]), np.stack([np.eye(4), np.diag([-1.0, 1, -1, 1])]),
+        np.eye(4), H=h, W=w)).astype(np.float32)
+    return [("u8-valued", rendered),
+            ("random", rng.uniform(0, 255, (2, h, w)).astype(np.float32))]
+
+
+def k1_error(out, ref) -> float:
+    return max((out[0] - ref[0]).abs().max().item(),
+               (out[1] - ref[1]).abs().max().item())
+
+
 def phase_k1(device) -> float:
-    """K1 against fast_nms_reference on the card; returns max |error|."""
+    """K1 against fast_nms_reference on the card, bit-exact: the one-level
+    entry at every main-path shape and 100x150, then the pyramid entry in
+    one launch over the 8 main-path shapes.  Returns max |error|."""
     rng = np.random.default_rng(2)
     world = synthetic.make_box_world(rng, half=6.0, tex_size=256)
+    shapes = level_shapes(H, W, 8, 1.2)
     worst = 0.0
-    for h, w in level_shapes(H, W, 8, 1.2) + [(100, 150)]:
-        K = np.array([[500.0 * w / W, 0, w / 2], [0, 500.0 * h / H, h / 2], [0, 0, 1]])
-        rendered = np.round(synthetic.render_rig(
-            world, np.stack([K, K]), np.stack([np.eye(4), np.diag([-1.0, 1, -1, 1])]),
-            np.eye(4), H=h, W=w)).astype(np.float32)
-        noise = rng.uniform(0, 255, (2, h, w)).astype(np.float32)
-        for name, img, atol in (("u8-valued", rendered, 0.0), ("random", noise, 1e-3)):
+    pyramids = {"u8-valued": [], "random": []}
+    for h, w in shapes + [(100, 150)]:
+        for name, img in k1_inputs(rng, world, h, w):
             x = torch.as_tensor(img, device=device)
-            s, sad = k1.fast_nms(x, 20.0, 7.0)
+            out = k1.fast_nms(x, TH_HI, TH_LO)
             torch.cuda.synchronize()
-            rs, rsad = k1.fast_nms_reference(x, 20.0, 7.0)
-            err = max((s - rs).abs().max().item(), (sad - rsad).abs().max().item())
+            ref = k1.fast_nms_reference(x, TH_HI, TH_LO)
+            err = k1_error(out, ref)
             worst = max(worst, err)
-            if err > atol:
+            if err != 0.0:
                 raise AssertionError(f"K1 disagrees at {h}x{w} {name}: "
-                                     f"max |err| {err} > {atol}")
-        n_corners = int((s > 0).sum())
-        log(f"  K1 {h}x{w} x2: agrees (corners kept {n_corners})")
+                                     f"max |err| {err}")
+            if (h, w) in shapes:
+                pyramids[name].append((x, ref))
+        log(f"  K1 {h}x{w} x2: agrees (corners kept {int((out[0] > 0).sum())})")
+    for name, levels in pyramids.items():
+        n0 = k1.fast_nms.launches
+        outs = k1.fast_nms_levels([x for x, _ in levels], TH_HI, TH_LO)
+        torch.cuda.synchronize()
+        if k1.fast_nms.launches != n0 + 1:
+            raise AssertionError("the pyramid entry did not launch exactly once")
+        errs = [k1_error(out, ref) for out, (_, ref) in zip(outs, levels)]
+        worst = max(worst, *errs)
+        if any(e != 0.0 for e in errs):
+            raise AssertionError(f"K1 pyramid launch disagrees on {name} input: "
+                                 f"max |err| per level {errs}")
+        log(f"  K1 pyramid, one launch over {len(levels)} levels x2, {name}: "
+            f"max |err| per level {errs}")
     return worst
 
 
 def run_chain(scene: Scene, device):
     """Chain frames 1-11 on the card.  Returns the per-frame (FrameData,
     FusedTrackOut), the ms of each step (CUDA events around each call) and
-    K1's launch count over the chain."""
+    K1's launch count over the chain (set to 0 just before it)."""
     mp = scene.store_tensors(device)
     T, V, slots = scene.initial_state(device)
     on = torch.ones(2, dtype=torch.bool, device=device)
@@ -250,6 +312,86 @@ def check_no_host_sync(scene: Scene, device) -> None:
     log("  one step ran with no host synchronization (sync debug mode: error)")
 
 
+def batch_args(scene: Scene, device):
+    """The batched entry point's arguments on the card: frames 1..DEPTH and
+    the state the one-by-one chain starts from."""
+    T, V, slots = scene.initial_state(device)
+    on = torch.ones(2, dtype=torch.bool, device=device)
+    images = torch.as_tensor(np.stack(scene.frames[1:1 + DEPTH]), device=device)
+    return (images, T, V, slots, on, *scene.store_tensors(device))
+
+
+def check_batch(scene: Scene, device, single) -> int:
+    """The batched path against the same frames run one by one (`single`,
+    phase 4's outputs): same kernels in the same order, so every output is
+    held exactly equal.  Returns K1's launches over the batch."""
+    args = batch_args(scene, device)
+    torch.cuda.synchronize()
+    k1.fast_nms.launches = 0
+    carry, fds, outs = scene.batch(*args)
+    torch.cuda.synchronize()
+    launches = k1.fast_nms.launches
+    if any(x.shape[0] != DEPTH or x.device != device for x in outs):
+        raise AssertionError("a batch output lacks the leading axis or the card")
+    if fds.feats.desc.shape != (DEPTH, 2, scene.n_feats, 8):
+        raise AssertionError(f"batched descriptors {tuple(fds.feats.desc.shape)}")
+    unequal = []
+    for k in range(DEPTH):
+        fd1, o1 = single[k]
+        pairs = list(zip(outs._fields, outs, o1)) + [
+            ("uv", fds.feats.uv, fd1.feats.uv), ("desc", fds.feats.desc, fd1.feats.desc),
+            ("words", fds.words, fd1.words)]
+        unequal += [(k + 1, name) for name, stacked, one in pairs
+                    if not torch.equal(stacked[k], one)]
+        dT = (outs.T_cw[k] - o1.T_cw).abs().max().item()
+        same = (outs.mp_slots[k] == o1.mp_slots).float().mean().item()
+        log(f"  batch frame {k + 1}: |dT| vs one-by-one {dT}, n_final "
+            f"{int(outs.n_final[k])} vs {int(o1.n_final)}, matched slots equal "
+            f"{same * 100:.2f}%")
+    if unequal:
+        raise AssertionError(f"batched and one-by-one outputs differ: {unequal}")
+    last = single[DEPTH - 1][1]
+    if not all(torch.equal(c, x) for c, x in
+               zip(carry, (last.T_cw, last.V_new, last.mp_slots))):
+        raise AssertionError("the batch's final carry is not its last frame's")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scene.batch(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"  a batch of {DEPTH} frames ran with no host synchronization "
+        f"(sync debug mode: error)")
+    return launches
+
+
+def time_batch_vs_single(scene: Scene, device, rounds: int = 3):
+    """ms/frame of frames 1..DEPTH through the batched entry point and
+    through the one-frame step, in alternating runs (one-frame, batch,
+    batch, one-frame per round), each run between two CUDA events."""
+    mp = scene.store_tensors(device)
+    on = torch.ones(2, dtype=torch.bool, device=device)
+    frames = [torch.as_tensor(f, device=device) for f in scene.frames[1:1 + DEPTH]]
+
+    def one_by_one():
+        T, V, slots = scene.initial_state(device)
+        for img in frames:
+            _, o = scene.step(img, T, V, slots, on, *mp)
+            T, V, slots = o.T_cw, o.V_new, o.mp_slots
+
+    args = batch_args(scene, device)
+
+    def batch():
+        scene.batch(*args)
+
+    t_single, t_batch = [], []
+    for _ in range(rounds):
+        for fn, out in ((one_by_one, t_single), (batch, t_batch),
+                        (batch, t_batch), (one_by_one, t_single)):
+            out.append(time_events(fn, 1)[0] / DEPTH)
+    return t_single, t_batch
+
+
 def time_events(fn, n: int) -> list[float]:
     """ms of each of n calls, with CUDA events around each."""
     out = []
@@ -318,37 +460,83 @@ def time_random(scene: Scene, device) -> list[float]:
     return time_events(lambda: step(next(it)), len(rand))
 
 
-def time_k1(device, h: int, w: int, n: int = 50):
-    """K1 on [2, h, w] random input: (kernel ms per call, plain ms per
-    call, kernel device-only ms).  Per-call times are n back-to-back calls
-    between CUDA events, alternated plain, kernel, kernel, plain; they
-    include the host's launch overhead, which bounds the plain version.
-    The device-only time queues the n launches behind a sleep kernel, so
-    the events see the launches run back to back."""
-    x = torch.rand(2, h, w, device=device) * 255
+def time_calls(fn, n: int, device_only: bool = False) -> float:
+    """ms per call of n back-to-back calls between two CUDA events, after
+    one warm-up call.  Plain, the time includes the host's launch
+    overhead; with `device_only` the n calls are queued behind a sleep
+    kernel, so the events see their launches run back to back."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    if device_only:
+        torch.cuda._sleep(50_000_000)          # ~25 ms of device time
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def k1_bound_ms(levels) -> tuple[float, str, float]:
+    """(bound in ms, what binds, share of pixels with a low-threshold arc)
+    of K1 on these inputs: the larger of the bytes it must move over the
+    card's memory rate and the operations it must do over the card's rate
+    for them (constants at the top)."""
+    n_px = sum(x.numel() for x in levels)
+    n_arc = sum(int((k1.fast_scores2(x, TH_HI, TH_LO)[1] > 0).sum()) for x in levels)
+    t_bytes = K1_BYTES_PER_PIXEL * n_px / H100_BYTES_PER_S
+    t_ops = (K1_OPS_PER_PIXEL * n_px + K1_OPS_PER_ARC * n_arc) / H100_SIMPLE_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations",
+            n_arc / n_px)
+
+
+def time_k1(scene: Scene, device) -> dict:
+    """K1 on the pyramid of a rendered main-path frame (8 levels x 2
+    cameras): the pyramid launch, the eight one-level launches and level 0
+    alone, device-only and per call, with the plain version, alternated
+    plain, kernel, kernel, plain; every level alone and a launch over
+    one-pixel levels, device-only; and the bounds from this data."""
+    images = torch.as_tensor(scene.frames[1], device=device).to(torch.float32)
+    pyr = [x.contiguous() for x in build_pyramid(
+        images, _tables(H, W, scene.cfg.orb, device).resize)]
+
+    def pyramid():
+        return k1.fast_nms_levels(pyr, TH_HI, TH_LO)
+
+    def eight():
+        return [k1.fast_nms(x, TH_HI, TH_LO) for x in pyr]
+
+    def level0():
+        return k1.fast_nms(pyr[0], TH_HI, TH_LO)
 
     def plain():
-        return k1.fast_nms_reference(x, 20.0, 7.0)
+        return [k1.fast_nms_reference(x, TH_HI, TH_LO) for x in pyr]
 
-    def kernel():
-        return k1.fast_nms(x, 20.0, 7.0)
+    def plain0():
+        return k1.fast_nms_reference(pyr[0], TH_HI, TH_LO)
 
-    def run(fn, queue_behind_sleep=False):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        fn()
-        torch.cuda.synchronize()
-        if queue_behind_sleep:
-            torch.cuda._sleep(50_000_000)          # ~25 ms of device time
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / n
-
-    p1, k_1, k_2, p2 = run(plain), run(kernel), run(kernel), run(plain)
-    return (k_1 + k_2) / 2, (p1 + p2) / 2, run(kernel, queue_behind_sleep=True)
+    r = {}
+    p1, p01 = time_calls(plain, 5), time_calls(plain0, 10)
+    # 30 calls at a time: on a slow host 50 calls of `eight` take longer
+    # to queue than the sleep kernel runs
+    for name, fn in (("pyramid", pyramid), ("eight", eight), ("level0", level0)):
+        r[name + "_call_ms"] = (time_calls(fn, 30) + time_calls(fn, 30)) / 2
+        r[name + "_device_ms"] = time_calls(fn, 30, device_only=True)
+    r["plain_ms"] = (p1 + time_calls(plain, 5)) / 2
+    r["plain0_ms"] = (p01 + time_calls(plain0, 10)) / 2
+    r["level_device_ms"] = [
+        time_calls(lambda x=x: k1.fast_nms(x, TH_HI, TH_LO), 30, device_only=True)
+        for x in pyr]
+    # what a launch costs before any work: 8 levels of one pixel
+    tiny = [torch.zeros(2, 1, 1, device=device) for _ in pyr]
+    r["floor_device_ms"] = time_calls(
+        lambda: k1.fast_nms_levels(tiny, TH_HI, TH_LO), 30, device_only=True)
+    r["bound_ms"], r["bound_by"], r["arc_share"] = k1_bound_ms(pyr)
+    r["bound0_ms"], r["bound0_by"], r["arc_share0"] = k1_bound_ms(pyr[:1])
+    r["shapes"] = [tuple(x.shape) for x in pyr]
+    return r
 
 
 def main() -> int:
@@ -356,54 +544,62 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 1
-    device = torch.device("cuda", 0)
+    device = torch.device("cuda", torch.cuda.current_device())
     t_start = time.perf_counter()
 
     # 1. card
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/5] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/6] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {name}, count {torch.cuda.device_count()}")
 
     # 2. build
     t0 = time.perf_counter()
     built = not _build.library_path().exists()
     _build.load_library()
-    log(f"[2/5] build: {'compiled' if built else 'cached'} "
+    log(f"[2/6] build: {'compiled' if built else 'cached'} "
         f"{_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "error" in line.lower():
+        if "registers" in line or "spill" in line or "error" in line.lower():
             log(f"  ptxas: {line.strip()}")
 
     # 3. K1 against its plain version
     k1_err = phase_k1(device)
-    log(f"[3/5] K1 agrees with its plain version at all level shapes "
-        f"(max |err| {k1_err})")
+    log(f"[3/6] K1 agrees with its plain version at all level shapes, one level "
+        f"per launch and the pyramid in one launch (max |err| {k1_err})")
 
-    # 4. the slice at full width
+    # 4. the one-frame path at full width
     cfg = dual_default()
     t0 = time.perf_counter()
     scene = Scene(cfg, device)
-    log(f"[4/5] scene: {N_FRAMES} frames 2x{H}x{W}, {scene.n_feats} features/camera, "
+    log(f"[4/6] scene: {N_FRAMES} frames 2x{H}x{W}, {scene.n_feats} features/camera, "
         f"{int(scene.store.valid.sum())}/{scene.cap} store slots seeded, vocabulary "
         f"k=10 depth 6 ({sum(c.numel() * 4 for c in scene.voc.centroids) / 1e6:.1f} MB) "
         f"in {time.perf_counter() - t0:.1f} s")
     outs, _, launches = run_chain(scene, device)
     check_track(scene, outs)
     n_tracked = len(outs)
-    if launches != cfg.orb.n_levels * n_tracked:
+    if launches != n_tracked:
         raise AssertionError(f"K1 launched {launches} times over {n_tracked} "
-                             f"frames, expected {cfg.orb.n_levels} per frame")
-    log(f"  K1 launches over the chain: {launches} ({launches // n_tracked} per frame)")
+                             f"frames, expected 1 per frame")
+    log(f"  K1 launches over the chain: {launches} ({launches / n_tracked:g} per frame)")
     cross_check_cpu(scene, outs[0][1])
     check_no_host_sync(scene, device)
 
-    # 5. timing
+    # 5. the batched path at full width
+    batch_launches = check_batch(scene, device, outs)
+    if batch_launches != DEPTH:
+        raise AssertionError(f"K1 launched {batch_launches} times over a batch of "
+                             f"{DEPTH} frames, expected 1 per frame")
+    log(f"[5/6] batched path: {DEPTH} frames equal the one-by-one run exactly; "
+        f"K1 launches {batch_launches} ({batch_launches / DEPTH:g} per frame)")
+
+    # 6. timing
     _, t_rend, _ = run_chain(scene, device)          # warm: timed run
     t_span, spans = run_chain_with_spans(scene, device)
     t_rand = time_random(scene, device)
     med = float(np.median(t_rend))
-    log(f"[5/5] step ms/frame ({card}): rendered chain median {med:.3f} "
+    log(f"[6/6] step ms/frame ({card}): rendered chain median {med:.3f} "
         f"(min {min(t_rend):.3f}, max {max(t_rend):.3f}); random frames "
         f"(widened retry) median {np.median(t_rand):.3f} "
         f"(max {max(t_rand):.3f})")
@@ -412,21 +608,44 @@ def main() -> int:
         f"frames, {total:.3f} ms, median {np.median(t_span):.3f} ms/frame): " +
         ", ".join(f"{k} {v:.3f} ms ({v / total:.4f})" for k, v in spans.items()) +
         "; optimize_pose runs inside the stages")
-    k1_rows = []
-    for h, w in level_shapes(H, W, 8, 1.2):
-        km, pm, kd = time_k1(device, h, w)
-        k1_rows.append((h, w, km, pm))
-        log(f"  K1 2x{h}x{w}: per call kernel {km * 1e3:.2f} us, plain "
-            f"{pm * 1e3:.2f} us; kernel device-only {kd * 1e3:.2f} us")
+    t_single, t_batch = time_batch_vs_single(scene, device)
+    log(f"  frames 1-{DEPTH}, ms/frame in alternating runs: one-frame step median "
+        f"{np.median(t_single):.3f} (" + ", ".join(f"{t:.3f}" for t in t_single) +
+        f"); batched step median {np.median(t_batch):.3f} (" +
+        ", ".join(f"{t:.3f}" for t in t_batch) + ")")
+    k = time_k1(scene, device)
+    us = 1e3
+    log(f"  K1 on a rendered frame's pyramid ({len(k['shapes'])} levels x2, us): "
+        f"one pyramid launch device-only {k['pyramid_device_ms'] * us:.2f}, per call "
+        f"{k['pyramid_call_ms'] * us:.2f}; eight one-level launches device-only "
+        f"{k['eight_device_ms'] * us:.2f}, per call {k['eight_call_ms'] * us:.2f}; "
+        f"plain per call {k['plain_ms'] * us:.2f}; bound {k['bound_ms'] * us:.2f} "
+        f"({k['bound_by']}, {k['arc_share']:.4f} of the pixels have a low-threshold "
+        f"arc); a launch over 8 one-pixel levels device-only "
+        f"{k['floor_device_ms'] * us:.2f}")
+    log(f"  K1 at 2x{H}x{W} alone (us): device-only {k['level0_device_ms'] * us:.2f}, "
+        f"per call {k['level0_call_ms'] * us:.2f}, plain per call "
+        f"{k['plain0_ms'] * us:.2f}; bound {k['bound0_ms'] * us:.2f} "
+        f"({k['bound0_by']}, arc share {k['arc_share0']:.4f})")
+    log("  K1 one level per launch, device-only us: " + ", ".join(
+        f"{h}x{w} {t * us:.2f}" for (_, h, w), t in zip(k["shapes"], k["level_device_ms"])))
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     log(f"  peak device memory {peak:.0f} MiB; total {time.perf_counter() - t_start:.0f} s")
 
+    # launches: the one-frame chain's and the batch's, each counted from 0
+    # just before its path ran; times: the pyramid launch, as both paths
+    # call it, on the main path's own data
     print(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda",
         "source": "orbslam2_dualcam_tpu_torch/csrc/fast_nms.cu",
         "replaces": "orbslam2_dualcam_tpu/ops/pallas_kernels.py:115",
-        "launches": launches, "max_abs_err": k1_err,
-        "ms": k1_rows[0][2], "plain_ms": k1_rows[0][3]}]}), flush=True)
+        "launches": launches, "launches_batched_path": batch_launches,
+        "max_abs_err": k1_err,
+        "ms": k["pyramid_device_ms"], "per_call_ms": k["pyramid_call_ms"],
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": None,
+        "level0_ms": k["level0_device_ms"], "level0_bound_ms": k["bound0_ms"]}]}),
+        flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -6,18 +6,25 @@ against each other on identical numpy inputs.  This package imports torch
 and numpy, never jax.
 
 What is ported so far is the fused per-frame dual-camera tracking step
-(`pipeline.frontend.make_track_fn`): ORB extraction on both cameras, BoW
+(`pipeline.frontend.make_track_fn`) and its D-frame batched form
+(`make_track_batch_fn`): ORB extraction on both cameras, BoW
 quantization, motion-model projection matching with the widened retry,
 motion-only pose optimization, the local-map rematch and the velocity
 update.  The dense FAST + NMS stage runs as a hand-written CUDA kernel on
-the card (`ops.fast_nms`, `csrc/fast_nms.cu`).
+the card, one launch for a frame's whole pyramid (`ops.fast_nms`,
+`csrc/fast_nms.cu`).  Entry points that take a `device` run on the current
+CUDA device unless the caller names another (`utils.device`).
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
-from orbslam2_dualcam_tpu.utils.config import (  # noqa: F401
+from orbslam2_dualcam_tpu_torch.utils.config import (  # noqa: F401
     BAConfig,
     CameraConfig,
+    CapacityConfig,
+    InitConfig,
+    LoopConfig,
+    MappingConfig,
     MatcherConfig,
     OrbConfig,
     SystemConfig,

@@ -72,8 +72,11 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare every entry point's signature."""
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fast_nms_f32.argtypes = [p, p, p, i, i, i, f, f, p]
-    lib.fast_nms_f32.restype = i
+    pp, pi = ctypes.POINTER(p), ctypes.POINTER(i)
+    lib.fast_nms_levels_f32.argtypes = [i, pp, pp, pp, pi, pi, pi, f, f, p]
+    lib.fast_nms_levels_f32.restype = i
+    lib.fast_nms_max_levels.argtypes = []
+    lib.fast_nms_max_levels.restype = i
     lib.kernels_error_string.argtypes = [i]
     lib.kernels_error_string.restype = ctypes.c_char_p
     return lib

@@ -11,7 +11,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from orbslam2_dualcam_tpu.utils.config import SystemConfig
+from orbslam2_dualcam_tpu_torch.utils.config import SystemConfig
+from orbslam2_dualcam_tpu_torch.utils.device import resolve_device
 from orbslam2_dualcam_tpu_torch.ops import lie
 
 
@@ -36,7 +37,9 @@ class CameraRig(NamedTuple):
         return self.K.shape[0]
 
 
-def make_rig(cfg: SystemConfig, device, dtype=torch.float32) -> CameraRig:
+def make_rig(cfg: SystemConfig, device=None, dtype=torch.float32) -> CameraRig:
+    """The rig of `cfg.cameras` on `device` (None: the current CUDA device)."""
+    device = resolve_device(device)
     Ks, dists, Tscs, whs = [], [], [], []
     for cam in cfg.cameras:
         Ks.append(np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy],

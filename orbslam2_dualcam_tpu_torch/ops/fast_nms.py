@@ -1,14 +1,18 @@
 """Kernel K1: fused dense FAST-9/16 (two thresholds) + blend + 3x3 NMS.
 
 Replaces the TPU kernel orbslam2_dualcam_tpu/ops/pallas_kernels.py
-(`fast_nms_pallas`).  On the card, `fast_nms` launches the hand-written
-CUDA kernel in csrc/fast_nms.cu; for a tensor on the CPU it runs the plain
-torch version, `fast_nms_reference` (= the reference's `fast_scores2` +
-blend + `nms3x3`, orb.py:625-629).  A CUDA tensor never takes the plain
-version: the kernel launches or the wrapper raises.
+(`fast_nms_pallas`).  On the card, `fast_nms_levels` runs the hand-written
+CUDA kernel in csrc/fast_nms.cu once over all levels and cameras of a
+frame's pyramid, and `fast_nms` is its one-level form; for tensors on the
+CPU they run the plain torch version, `fast_nms_reference` (= the
+reference's `fast_scores2` + blend + `nms3x3`, orb.py:625-629).  A CUDA
+tensor never takes the plain version: the kernel launches or the wrapper
+raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -87,39 +91,79 @@ def fast_nms_reference(img: torch.Tensor, th_hi: float, th_lo: float):
 
 
 # ---------------------------------------------------------------------------
-# the wrapper
+# the wrappers
 # ---------------------------------------------------------------------------
 
-def fast_nms(img: torch.Tensor, th_hi: float, th_lo: float):
-    """Fused FAST(th_hi, th_lo) + blend + 3x3 NMS over img [ncam, H, W] or
-    (H, W), f32 and contiguous.  Returns (s_nms, sad_lo) of img's shape.
-
-    CPU tensors run `fast_nms_reference`; CUDA tensors launch the kernel
-    (one launch per call, counted in `fast_nms.launches`) or raise."""
-    if img.device.type == "cpu":
-        return fast_nms_reference(img, th_hi, th_lo)
-    if img.device.type != "cuda":
-        raise ValueError(f"fast_nms: unsupported device {img.device}")
-    if img.dtype != torch.float32:
-        raise TypeError(f"fast_nms: expected float32, got {img.dtype}")
-    if img.dim() not in (2, 3) or img.numel() == 0:
+def _check_level(x: torch.Tensor, device: torch.device) -> None:
+    if x.device != device:
+        raise ValueError(f"fast_nms: levels on {device} and {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"fast_nms: expected float32, got {x.dtype}")
+    if x.dim() not in (2, 3) or x.numel() == 0:
         raise ValueError(f"fast_nms: expected a non-empty [ncam, H, W] or "
-                         f"(H, W) image, got shape {tuple(img.shape)}")
-    if not img.is_contiguous():
+                         f"(H, W) image, got shape {tuple(x.shape)}")
+    if not x.is_contiguous():
         raise ValueError("fast_nms: input must be contiguous")
-    x = img if img.dim() == 3 else img[None]
-    ncam, H, W = x.shape
-    s = torch.empty_like(x)
-    sad = torch.empty_like(x)
+
+
+def fast_nms_levels(levels: list[torch.Tensor], th_hi: float, th_lo: float):
+    """Fused FAST(th_hi, th_lo) + blend + 3x3 NMS over every image of a
+    list of levels, each [ncam, H, W] or (H, W), f32 and contiguous, of any
+    sizes.  Returns one (s_nms, sad_lo) pair of the level's shape per level.
+
+    CPU tensors run `fast_nms_reference` level by level.  CUDA tensors take
+    ONE kernel launch for the whole list (counted in `fast_nms.launches`)
+    or raise; the kernel needs th_hi >= th_lo >= 0.  The launch reads no
+    value back and copies no table to the device, so it does not
+    synchronize."""
+    levels = list(levels)
+    if not levels:
+        raise ValueError("fast_nms_levels: no levels")
+    device = levels[0].device
+    if device.type == "cpu":
+        if any(x.device != device for x in levels):
+            raise ValueError("fast_nms_levels: levels on different devices")
+        return [fast_nms_reference(x, th_hi, th_lo) for x in levels]
+    if device.type != "cuda":
+        raise ValueError(f"fast_nms: unsupported device {device}")
+    for x in levels:
+        _check_level(x, device)
+    if not float(th_hi) >= float(th_lo) >= 0.0:
+        raise ValueError(f"fast_nms: the kernel needs th_hi >= th_lo >= 0, got "
+                         f"th_hi {th_hi}, th_lo {th_lo}")
     lib = _build.load_library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        status = lib.fast_nms_f32(x.data_ptr(), s.data_ptr(), sad.data_ptr(),
-                                  ncam, H, W, float(th_hi), float(th_lo),
-                                  stream)
+    n = len(levels)
+    if n > lib.fast_nms_max_levels():
+        raise ValueError(f"fast_nms_levels: {n} levels, one launch takes at "
+                         f"most {lib.fast_nms_max_levels()}")
+    # both outputs of every level are views of one allocation
+    sizes = [x.numel() for x in levels]
+    parts = torch.empty(2 * sum(sizes), dtype=torch.float32,
+                        device=device).split(sizes + sizes)
+    outs = [(parts[l].view(x.shape), parts[n + l].view(x.shape))
+            for l, x in enumerate(levels)]
+    ptrs, ints = ctypes.c_void_p * n, ctypes.c_int * n
+    shapes = [x.shape if x.dim() == 3 else (1, *x.shape) for x in levels]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        status = lib.fast_nms_levels_f32(
+            n, ptrs(*(x.data_ptr() for x in levels)),
+            ptrs(*(s.data_ptr() for s, _ in outs)),
+            ptrs(*(sad.data_ptr() for _, sad in outs)),
+            ints(*(sh[0] for sh in shapes)), ints(*(sh[1] for sh in shapes)),
+            ints(*(sh[2] for sh in shapes)),
+            float(th_hi), float(th_lo), stream)
     _build.check_status(lib, status, "fast_nms")
     fast_nms.launches += 1
-    return s.view(img.shape), sad.view(img.shape)
+    return outs
 
 
+def fast_nms(img: torch.Tensor, th_hi: float, th_lo: float):
+    """The one-level entry: `fast_nms_levels` on [img], img [ncam, H, W] or
+    (H, W).  Returns (s_nms, sad_lo) of img's shape.  On a CUDA tensor it
+    launches the same kernel once."""
+    return fast_nms_levels([img], th_hi, th_lo)[0]
+
+
+# K1's launches, whichever entry point made them
 fast_nms.launches = 0

@@ -1,14 +1,17 @@
 """Descriptor matching as dense tensor algebra.
 
 Port of orbslam2_dualcam_tpu/ops/matching.py: one masked Hamming-distance
-matrix, then top-2 selection, Lowe ratio, absolute threshold and a
+matrix, then top-2 selection, Lowe ratio, absolute threshold, the
+optional mutual-best and rotation-consistency tests and a
 one-row-per-column de-duplication.  Each search variant of the reference
-matcher is a different mask on the same computation.  Every function
+matcher is a different mask on the same computation (window, level,
+vocabulary-node and epipolar masks).  Every function
 accepts leading batch axes.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -44,23 +47,61 @@ class MatchResult(NamedTuple):
     dist: torch.Tensor   # [N] float32 best Hamming distance (INF if unmatched)
 
 
+def _rotation_consistency(angle_a: torch.Tensor, angle_b: torch.Tensor,
+                          idx: torch.Tensor, histo_length: int) -> torch.Tensor:
+    """ORBmatcher::ComputeThreeMaxima (ORBmatcher.cc:1986-2013): bin the
+    per-match angle difference into `histo_length` bins, keep matches in
+    the 3 most-populated bins.  angle_a, idx [..., N], angle_b [..., M];
+    returns the keep mask aligned with idx."""
+    matched = idx >= 0
+    two_pi = 2.0 * math.pi
+    d = torch.remainder(angle_a - torch.gather(angle_b, -1, idx.clamp(min=0)),
+                        two_pi)
+    bins = torch.clamp((d * histo_length / two_pi).to(torch.int64), 0,
+                       histo_length - 1)
+    counts = torch.zeros((*idx.shape[:-1], histo_length), dtype=torch.int64,
+                         device=idx.device).scatter_add_(
+        -1, bins, matched.to(torch.int64))
+    top3 = torch.sort(counts, dim=-1).values[..., -3:]
+    v1, v2, v3 = top3[..., 2], top3[..., 1], top3[..., 0]
+    # drop 2nd/3rd maxima below 0.1*max (ORBmatcher.cc:2002-2010)
+    min_keep = torch.where(v3 >= 0.1 * v1, v3,
+                           torch.where(v2 >= 0.1 * v1, v2, v1))
+    keep_bin = counts >= min_keep.clamp(min=1)[..., None]
+    return matched & torch.gather(keep_bin, -1, bins)
+
+
 def match_masked(desc_a: torch.Tensor, desc_b: torch.Tensor,
                  allow: Optional[torch.Tensor] = None,
                  valid_a: Optional[torch.Tensor] = None,
                  valid_b: Optional[torch.Tensor] = None,
-                 max_dist=50.0, ratio=1.0) -> MatchResult:
-    """Masked Hamming top-2 with ratio and threshold tests.
+                 max_dist=50.0, ratio=1.0,
+                 angle_a: Optional[torch.Tensor] = None,
+                 angle_b: Optional[torch.Tensor] = None,
+                 histo_length: int = 30,
+                 mutual: bool = False,
+                 dist_matrix: Optional[torch.Tensor] = None) -> MatchResult:
+    """The universal matcher: masked Hamming top-2 with ratio, threshold
+    and rotation tests.
 
     allow: optional bool [..., N, M], which pairs may match.
     ratio: Lowe ratio on best vs second-best within the allowed set;
       ratio >= 1 disables it.  max_dist may be a 0-d tensor; ratio is a
       Python float.
+    angle_a, angle_b: keypoint angles [..., N] and [..., M]; with both
+      given, matches outside the 3 fullest of `histo_length` bins of the
+      angle difference are dropped.
+    mutual: additionally require a to be b's best (the bidirectional check
+      of SearchForInitialization, ORBmatcher.cc:1117+).
+    dist_matrix: precomputed hamming_matrix(desc_a, desc_b), to share it
+      between several variant calls on the same frame pair.
 
     Top-2 follows `lax.top_k`'s order: smaller distance first, and on
-    equal distances the lower column first.  Distances are integers in
-    [0, 256] (masked pairs read 257), so distance * M + column is a unique
-    int64 key and the order is explicit."""
-    D = hamming_matrix(desc_a, desc_b)
+    equal distances the lower column first; the mutual check follows
+    `argmin`'s: the lower row first.  Distances are integers in [0, 256]
+    (masked pairs read 257), so distance * M + column (or * N + row) is a
+    unique int64 key and the order is explicit."""
+    D = hamming_matrix(desc_a, desc_b) if dist_matrix is None else dist_matrix
     mask = torch.ones(D.shape, dtype=torch.bool, device=D.device)
     if allow is not None:
         mask = mask & allow
@@ -68,7 +109,7 @@ def match_masked(desc_a: torch.Tensor, desc_b: torch.Tensor,
         mask = mask & valid_a[..., :, None]
     if valid_b is not None:
         mask = mask & valid_b[..., None, :]
-    M = D.shape[-1]
+    N, M = D.shape[-2:]
     cols = torch.arange(M, device=D.device)
     code = torch.where(mask, D.to(torch.int64), torch.full_like(cols, 257))
     if M >= 2:
@@ -85,7 +126,16 @@ def match_masked(desc_a: torch.Tensor, desc_b: torch.Tensor,
     ok = d1 <= max_dist
     if ratio < 1.0:
         ok = ok & (d1 < ratio * d2)
+    if mutual:
+        rows = torch.arange(N, device=D.device)
+        col_best = (code * N + rows[:, None]).amin(dim=-2) % N     # [..., M]
+        ok = ok & (torch.gather(col_best, -1, best) == rows)
     idx = torch.where(ok, best, torch.full_like(best, -1))
+
+    if angle_a is not None and angle_b is not None:
+        keep = _rotation_consistency(angle_a, angle_b, idx, histo_length)
+        idx = torch.where(keep, idx, torch.full_like(idx, -1))
+
     # resolve duplicate column assignments: keep the lowest-distance row
     idx = _dedup_columns(idx, d1, M)
     return MatchResult(idx=idx, dist=torch.where(idx >= 0, d1, INF))
@@ -124,9 +174,33 @@ def window_mask(uv_a: torch.Tensor, uv_b: torch.Tensor, radius) -> torch.Tensor:
     return (d[..., 0] <= r) & (d[..., 1] <= r)
 
 
+def node_mask(nodes_a: torch.Tensor, nodes_b: torch.Tensor) -> torch.Tensor:
+    """[..., N, M] same-vocabulary-node pairs (FeatureVector alignment,
+    ORBmatcher.cc:181-276)."""
+    return nodes_a[..., :, None] == nodes_b[..., None, :]
+
+
 def level_mask(level_a: torch.Tensor, level_b: torch.Tensor,
                lo: int = -1, hi: int = 1) -> torch.Tensor:
     """Pyramid-level agreement window (SearchByProjection checks the
     predicted octave +-1)."""
     d = level_b[..., None, :] - level_a[..., :, None]
     return (d >= lo) & (d <= hi)
+
+
+def epipolar_mask(F12: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor,
+                  sigma2_2: torch.Tensor, epipole1_in_2: torch.Tensor,
+                  min_epipole_dist2, chi2: float = 3.84) -> torch.Tensor:
+    """SearchForTriangulation gate (ORBmatcher.cc:1253-1427): a candidate
+    in image 2 must lie near the epipolar line of uv1 and away from the
+    epipole.  F12 [3, 3], uv1 [N, 2], uv2 [M, 2], sigma2_2 [M] -> [N, M]."""
+    x1 = torch.cat([uv1, torch.ones_like(uv1[..., :1])], dim=-1)
+    line = x1 @ F12                                   # [N, 3]
+    num = (line[:, None, 0] * uv2[None, :, 0] +
+           line[:, None, 1] * uv2[None, :, 1] + line[:, None, 2])
+    den = line[:, 0] ** 2 + line[:, 1] ** 2
+    d2 = num * num / torch.where(den > 1e-12, den,
+                                 torch.full_like(den, 1e-12))[:, None]
+    near_line = d2 < chi2 * sigma2_2[None, :]
+    far_from_epipole = ((uv2 - epipole1_in_2) ** 2).sum(-1) > min_epipole_dist2
+    return near_line & far_from_epipole[None, :]

@@ -3,9 +3,10 @@
 Port of orbslam2_dualcam_tpu/ops/orb.py, following the reference's CPU
 branch on every device: the pyramid and the 7-tap blur are banded matrix
 products against host-built tables, dense FAST + NMS is kernel K1
-(ops/fast_nms.py), keypoints are picked by the tiered cell-winner top-k,
-and the sparse phase reads exact patches around each keypoint for the
-sub-pixel fit, the intensity-centroid angle and the 30-bin steered BRIEF.
+(ops/fast_nms.py, one launch for the whole pyramid), keypoints are picked
+by the tiered cell-winner top-k, and the sparse phase reads exact patches
+around each keypoint for the sub-pixel fit, the intensity-centroid angle
+and the 30-bin steered BRIEF.
 
 Cameras are a leading batch axis throughout: images [ncam, H, W] ->
 Features with leading ncam.
@@ -20,9 +21,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from orbslam2_dualcam_tpu.utils.config import OrbConfig
+from orbslam2_dualcam_tpu_torch.utils.config import OrbConfig
 from orbslam2_dualcam_tpu_torch.ops.fast_nms import (  # noqa: F401
-    NMS_BONUS, fast_nms, fast_scores2, nms3x3)
+    NMS_BONUS, fast_nms_levels, fast_scores2, nms3x3)
 from orbslam2_dualcam_tpu_torch.ops.orb_tables import (
     _blur_matrix, _level_budget, _resize_matrix, _steered_sampling_indices,
     ic_angle_masks)
@@ -236,12 +237,16 @@ def extract_orb_rig(images: torch.Tensor, cfg: OrbConfig,
     ic_radius = (cfg.patch_size - 1) // 2
     th_hi, th_lo = float(cfg.ini_th_fast), float(cfg.min_th_fast)
 
+    # high-threshold corners preferred, low-threshold fill-in: K1, one
+    # launch over every level that has a budget
+    used = [l for l, budget in enumerate(budgets) if budget > 0]
+    scores = dict(zip(used, fast_nms_levels(
+        [pyr[l].contiguous() for l in used], th_hi, th_lo)))
+
     yxs, lvls, resps, offs, angs, descs = [], [], [], [], [], []
-    for l, (im, budget) in enumerate(zip(pyr, budgets)):
-        if budget == 0:
-            continue
-        # high-threshold corners preferred; low-threshold fill-in
-        s, sad_lo = fast_nms(im.contiguous(), th_hi, th_lo)
+    for l in used:
+        im, budget = pyr[l], budgets[l]
+        s, sad_lo = scores[l]
         yx, sc = select_keypoints(s, budget, cell=cfg.cell_size,
                                   border=cfg.edge_threshold)
         yxs.append(yx)

@@ -1,6 +1,6 @@
 """Host-side numpy constant tables of the ORB extractor.
 
-Copied from orbslam2_dualcam_tpu/ops/orb.py, whose module imports jax; a
+The port's own copy of the tables in orbslam2_dualcam_tpu/ops/orb.py; a
 test pins every table here equal to the reference's.  Everything is
 computed once on the host and uploaded by the callers.
 """
@@ -25,7 +25,7 @@ def brief_pattern(seed: int, patch_size: int = 31,
     Gaussian test pattern clipped to the patch, or, for seed < 0, the ORB
     paper's published learned pattern (ops/orb_pattern.py)."""
     if seed < 0:
-        from orbslam2_dualcam_tpu.ops.orb_pattern import learned_pattern
+        from orbslam2_dualcam_tpu_torch.ops.orb_pattern import learned_pattern
         return learned_pattern()
     rng = np.random.default_rng(seed)
     half = patch_size // 2

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from orbslam2_dualcam_tpu.utils.config import BAConfig
+from orbslam2_dualcam_tpu_torch.utils.config import BAConfig
 from orbslam2_dualcam_tpu_torch.ops import lie
 from orbslam2_dualcam_tpu_torch.optim import factors
 

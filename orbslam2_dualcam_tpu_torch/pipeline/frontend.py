@@ -1,7 +1,7 @@
-"""The fused per-frame dual-camera tracking step.
+"""The fused per-frame dual-camera tracking step and its batched form.
 
-Port of orbslam2_dualcam_tpu/pipeline/frontend.py (make_track_fn and what
-it calls): extraction on both cameras + BoW quantization, stage-1
+Port of orbslam2_dualcam_tpu/pipeline/frontend.py (make_track_fn,
+make_track_batch_fn and what they call): extraction on both cameras + BoW quantization, stage-1
 motion-model projection matching + pose optimization with the widened
 retry, stage-2 local-map rematch + re-optimization, pose
 re-orthonormalization and the velocity update.
@@ -18,10 +18,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from orbslam2_dualcam_tpu.utils.config import BAConfig, SystemConfig
+from orbslam2_dualcam_tpu_torch.utils.config import BAConfig, SystemConfig
 from orbslam2_dualcam_tpu_torch.ops import camera, matching, orb
 from orbslam2_dualcam_tpu_torch.ops.camera import CameraRig
 from orbslam2_dualcam_tpu_torch.optim import pose_opt
+from orbslam2_dualcam_tpu_torch.utils.device import resolve_device
 from orbslam2_dualcam_tpu_torch.vocab import bow
 
 
@@ -241,24 +242,24 @@ def _make_track_body(cfg: SystemConfig, n_feats: int,
     return track_frame
 
 
-def make_track_fn(cfg: SystemConfig, n_feats: int,
-                  voc: Optional[bow.Vocabulary], rig: CameraRig, device):
-    """Build the fused per-frame tracking step on `device`.
+def _stack_leaves(items):
+    """[NamedTuple of (nested) tensors] * D -> one NamedTuple of the same
+    type with a leading axis D on every leaf."""
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(items)
+    return type(first)(*(_stack_leaves(list(xs)) for xs in zip(*items)))
 
-    The returned function takes (images [ncam,H,W] u8 or f32, T_last [4,4],
-    V [4,4], prev_slots [ncam,N] int64, cam_enabled [ncam] bool, mp_pos
-    [M,3], mp_desc [M,8] int32, mp_valid [M], mp_max [M], mp_min [M],
-    mp_norm [M,3]), all on `device`, and returns (FrameData,
-    FusedTrackOut).  prev_slots are the previous frame's matched store
-    slots (the reference's last-frame points); the store is the
-    reference's device map store as flat tensors.
+
+def _checked_body(cfg: SystemConfig, n_feats: int,
+                  voc: Optional[bow.Vocabulary], rig: CameraRig, device):
+    """The step on `device` (None: the current CUDA device), after checking
+    that the rig and the vocabulary lie there.
 
     Float32 matrix products on this path must run in full f32: TF32 is
     switched off for matmuls and cuDNN here."""
-    device = torch.device(device)
+    device = resolve_device(device)
     if device.type == "cuda":
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     for t in rig:
@@ -267,3 +268,54 @@ def make_track_fn(cfg: SystemConfig, n_feats: int,
     if voc is not None and any(c.device != device for c in voc.centroids):
         raise ValueError(f"vocabulary not on {device}")
     return _make_track_body(cfg, n_feats, voc, rig, device)
+
+
+def make_track_fn(cfg: SystemConfig, n_feats: int,
+                  voc: Optional[bow.Vocabulary], rig: CameraRig, device=None):
+    """Build the fused per-frame tracking step on `device`; None means the
+    current CUDA device, and raises where there is none.
+
+    The returned function takes (images [ncam,H,W] u8 or f32, T_last [4,4],
+    V [4,4], prev_slots [ncam,N] int64, cam_enabled [ncam] bool, mp_pos
+    [M,3], mp_desc [M,8] int32, mp_valid [M], mp_max [M], mp_min [M],
+    mp_norm [M,3]), all on `device`, and returns (FrameData,
+    FusedTrackOut).  prev_slots are the previous frame's matched store
+    slots (the reference's last-frame points); the store is the
+    reference's device map store as flat tensors."""
+    return _checked_body(cfg, n_feats, voc, rig, device)
+
+
+def make_track_batch_fn(cfg: SystemConfig, n_feats: int,
+                        voc: Optional[bow.Vocabulary], rig: CameraRig,
+                        depth: int, device=None):
+    """Depth-D batched variant of make_track_fn: the step run over a
+    [D, ncam, H, W] image stack, chaining the pose, velocity and
+    matched-slot carries on the device (the reference's lax.scan over the
+    fused body, frontend.py:160-170).  Nothing is read back between
+    frames, so the host queues all D frames without waiting for the card.
+
+    The returned function takes the arguments of the one-frame step with
+    images [D, ncam, H, W] and returns (carry, fds, outs): carry =
+    (T_cw, V_new, mp_slots) after the last frame, fds a FrameData and outs
+    a FusedTrackOut with a leading axis D on every leaf."""
+    depth = int(depth)
+    if depth < 1:
+        raise ValueError(f"make_track_batch_fn: depth {depth} < 1")
+    body = _checked_body(cfg, n_feats, voc, rig, device)
+
+    def track_batch(images, T_last, V, prev_slots, cam_enabled, mp_pos,
+                    mp_desc, mp_valid, mp_max, mp_min, mp_norm):
+        if images.shape[0] != depth:
+            raise ValueError(f"track_batch: built for depth {depth}, got "
+                             f"{images.shape[0]} frames")
+        carry = (T_last, V, prev_slots)
+        fds, outs = [], []
+        for img in images.unbind(0):
+            fd, out = body(img, *carry, cam_enabled, mp_pos, mp_desc,
+                           mp_valid, mp_max, mp_min, mp_norm)
+            carry = (out.T_cw, out.V_new, out.mp_slots)
+            fds.append(fd)
+            outs.append(out)
+        return carry, _stack_leaves(fds), _stack_leaves(outs)
+
+    return track_batch

@@ -19,6 +19,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from orbslam2_dualcam_tpu_torch.utils.device import resolve_device
+
 
 def _popcount64(x: np.ndarray) -> np.ndarray:
     return np.bitwise_count(x)
@@ -89,9 +91,11 @@ class Vocabulary(NamedTuple):
 def train_vocabulary(desc: np.ndarray, branching: int = 10, depth: int = 4,
                      seed: int = 42, direct_level: int = 2,
                      weight_docs: Optional[list[np.ndarray]] = None,
-                     device="cpu") -> Vocabulary:
+                     device=None) -> Vocabulary:
     """Train the tree by recursive k-majority on the host and place it on
-    `device`. desc: [N, 8] uint32 training descriptors."""
+    `device` (None: the current CUDA device). desc: [N, 8] uint32 training
+    descriptors."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     k = branching
     levels: list[np.ndarray] = []

@@ -34,7 +34,8 @@ def test_train_vocabulary_copy_matches_reference(trained, weighted):
         jv = jbow.train_vocabulary(train, branching=10, depth=3, seed=3,
                                    direct_level=2, weight_docs=docs)
     tv = tbow.train_vocabulary(train, branching=10, depth=3, seed=3,
-                               direct_level=2, weight_docs=docs)
+                               direct_level=2, weight_docs=docs,
+                               device="cpu")
     for a, b in zip(tv.centroids, jv.centroids):
         np.testing.assert_array_equal(a.numpy().view(np.uint32), np.asarray(b))
     np.testing.assert_array_equal(tv.idf.numpy(), np.asarray(jv.idf))
@@ -53,7 +54,7 @@ def test_quantize_exact(trained, word_map):
     desc = np.concatenate([random_desc(rng, 700), train[:300]])
     jw, jn = jbow.quantize(jv, jnp.asarray(desc))
     tv = vocab_from_numpy(jv, "cpu")
-    tw, tn = tbow.quantize(tv, desc_to_torch(desc))
+    tw, tn = tbow.quantize(tv, desc_to_torch(desc, "cpu"))
     np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
     np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
 
@@ -62,4 +63,4 @@ def test_popcount_words_matches_numpy():
     rng = np.random.default_rng(9)
     d = random_desc(rng, 64)
     np.testing.assert_array_equal(
-        tbow.popcount_words(desc_to_torch(d)).numpy(), np.bitwise_count(d))
+        tbow.popcount_words(desc_to_torch(d, "cpu")).numpy(), np.bitwise_count(d))

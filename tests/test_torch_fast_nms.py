@@ -1,6 +1,7 @@
 """Kernel K1 (fused FAST + blend + 3x3 NMS): the port's plain torch version
 against the reference's Pallas kernel (interpret mode) and its XLA
-composition.  The CUDA kernel's own test is in test_torch_gpu.py."""
+composition, for the one-level and the pyramid entry.  The CUDA kernel's
+own test is in test_torch_gpu.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,6 +11,7 @@ import torch
 from orbslam2_dualcam_tpu.ops import orb as jorb
 from orbslam2_dualcam_tpu.ops.pallas_kernels import fast_nms_pallas
 from orbslam2_dualcam_tpu_torch.ops import fast_nms as k1
+from orbslam2_dualcam_tpu_torch.ops.orb import level_shapes
 
 from torch_parity import rendered_frame
 
@@ -54,6 +56,42 @@ def test_fast_nms_cpu_wrapper_batches_cameras():
         s1, sad1 = k1.fast_nms_reference(torch.as_tensor(img), 20.0, 7.0)
         assert torch.equal(s[c], s1) and torch.equal(sad[c], sad1)
 
+
+def test_fast_nms_levels_on_cpu_matches_reference_and_pallas():
+    """The pyramid entry on CPU tensors, 4 levels of two u8-valued cameras
+    from 240 x 320 down: per level exactly the plain version, and exactly
+    the reference's Pallas kernel (interpret mode) camera by camera; no
+    kernel launch is counted."""
+    shapes = level_shapes(240, 320, 4, 1.2)
+    assert shapes[-1] == (139, 185)
+    levels = [np.stack([rendered_frame(0, h, w), rendered_frame(1, h, w)[::-1]])
+              for h, w in shapes]
+    before = k1.fast_nms.launches
+    outs = k1.fast_nms_levels([torch.as_tensor(x) for x in levels], 20.0, 7.0)
+    assert k1.fast_nms.launches == before
+    assert len(outs) == len(levels)
+    for x, (s, sad) in zip(levels, outs):
+        rs, rsad = k1.fast_nms_reference(torch.as_tensor(x), 20.0, 7.0)
+        assert s.shape == x.shape and torch.equal(s, rs) and torch.equal(sad, rsad)
+        for c in range(2):
+            ps, psad = fast_nms_pallas(jnp.asarray(x[c]), 20.0, 7.0, interpret=True)
+            np.testing.assert_array_equal(s[c].numpy(), np.asarray(ps))
+            np.testing.assert_array_equal(sad[c].numpy(), np.asarray(psad))
+        assert (s > 0).sum() > 50
+    # (H, W) levels of different sizes in one call
+    mixed = k1.fast_nms_levels([torch.as_tensor(levels[0][0]),
+                                torch.as_tensor(levels[3])], 20.0, 7.0)
+    assert torch.equal(mixed[0][0], outs[0][0][0]) and torch.equal(mixed[1][1], outs[3][1])
+
+
+def test_fast_nms_levels_rejects_bad_lists():
+    with pytest.raises(ValueError, match="no levels"):
+        k1.fast_nms_levels([], 20.0, 7.0)
+    with pytest.raises(ValueError, match="different devices"):
+        k1.fast_nms_levels([torch.zeros(8, 8), torch.zeros(8, 8, device="meta")],
+                           20.0, 7.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        k1.fast_nms_levels([torch.zeros(8, 8, device="meta")], 20.0, 7.0)
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version():

@@ -11,12 +11,14 @@ from orbslam2_dualcam_tpu.ops import orb as jorb
 from orbslam2_dualcam_tpu.utils.config import OrbConfig
 from orbslam2_dualcam_tpu_torch.ops import orb as torb
 from orbslam2_dualcam_tpu_torch.ops import orb_tables
+from orbslam2_dualcam_tpu_torch.utils.convert import config_from_reference
 
 from torch_parity import rendered_frame
 
 torch.set_num_threads(1)
 
 CFG = OrbConfig(n_levels=4)
+TCFG = config_from_reference(CFG)       # the same config as the port's class
 N_FEATS = 400
 
 
@@ -48,7 +50,7 @@ def both():
     imgs = np.stack([rendered_frame(0), rendered_frame(1)])   # u8-valued
     jf = jax.jit(lambda im: jorb.extract_orb_rig(im, CFG, N_FEATS))(
         jnp.asarray(imgs))
-    tf = torb.extract_orb_rig(torch.as_tensor(imgs), CFG, N_FEATS)
+    tf = torb.extract_orb_rig(torch.as_tensor(imgs), TCFG, N_FEATS)
     jf = type(jf)(*(np.asarray(x) for x in jf))
     tf = type(tf)(*(x.numpy() for x in tf))
     return imgs, jf, tf
@@ -64,7 +66,7 @@ def test_pyramid_matches_reference(both):
     imgs = both[0]
     ours = torb.build_pyramid(
         torch.as_tensor(imgs),
-        torb._tables(*imgs.shape[1:], CFG, torch.device("cpu")).resize)
+        torb._tables(*imgs.shape[1:], TCFG, torch.device("cpu")).resize)
     shapes = torb.level_shapes(*imgs.shape[1:], 4, 1.2)
     host = [imgs]
     for (hp, wp), (h, w) in zip(shapes[:-1], shapes[1:]):
@@ -113,7 +115,7 @@ def test_extract_orb_single_image_is_rig_camera(both):
     the order of the CPU's vectorized sums (measured: 1 ulp on 6 of 400
     angles)."""
     imgs, _, tf = both
-    one = torb.extract_orb(torch.as_tensor(imgs[1]), CFG, N_FEATS)
+    one = torb.extract_orb(torch.as_tensor(imgs[1]), TCFG, N_FEATS)
     for name, x in zip(one._fields, one):
         np.testing.assert_allclose(x.numpy(), getattr(tf, name)[1], rtol=0,
                                    atol=1e-6, err_msg=name)

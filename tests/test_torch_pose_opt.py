@@ -14,6 +14,7 @@ from orbslam2_dualcam_tpu.utils.config import (BAConfig, CameraConfig,
 from orbslam2_dualcam_tpu_torch.ops import camera as tcam
 from orbslam2_dualcam_tpu_torch.ops import lie as tlie
 from orbslam2_dualcam_tpu_torch.optim import pose_opt as tpo
+from orbslam2_dualcam_tpu_torch.utils.convert import config_from_reference
 
 from torch_parity import t
 
@@ -25,11 +26,12 @@ CFG = SystemConfig(cameras=(
     CameraConfig(),
     CameraConfig(q_sc=(0.0, 0.0, 1.0, 0.0), t_sc=(0.05, 0.0, 0.10),
                  dist=(-0.12, 0.03, 1e-3, -5e-4, 0.0))))
+TCFG = config_from_reference(CFG)       # the same config as the port's classes
 
 
 def test_make_rig_matches_reference():
     """All leaves to 1e-5 (bounds are pixels: 1e-3)."""
-    jr, tr = jcam.make_rig(CFG), tcam.make_rig(CFG, "cpu")
+    jr, tr = jcam.make_rig(CFG), tcam.make_rig(TCFG, "cpu")
     for name in tr._fields:
         atol = 1e-3 if name == "bounds" else 1e-5
         np.testing.assert_allclose(getattr(tr, name).numpy(),
@@ -50,7 +52,7 @@ def test_lie_and_projection_match_reference():
         np.testing.assert_allclose(tlie.se3_adjoint(T).numpy(),
                                    np.asarray(jlie.se3_adjoint(jnp.asarray(T.numpy()))),
                                    rtol=0, atol=1e-5)
-    jr, tr = jcam.make_rig(CFG), tcam.make_rig(CFG, "cpu")
+    jr, tr = jcam.make_rig(CFG), tcam.make_rig(TCFG, "cpu")
     X = rng.uniform(-3, 3, (64, 3)).astype(np.float32)
     X[:, 2] = np.where(rng.uniform(size=64) > 0.5, 1, -1) * rng.uniform(2, 8, 64)
     cam = (X[:, 2] < 0).astype(np.int64)
@@ -103,10 +105,10 @@ def test_optimize_pose_matches_reference(ba):
     Tj, inl_j, n_j = jpo.optimize_pose(
         jnp.asarray(T0), jnp.asarray(X), jnp.asarray(uv), jnp.asarray(cam),
         jnp.asarray(isg), jnp.asarray(valid), jr.T_sc, jr.adj_sc, jr.K, cfg=ba)
-    tr = tcam.make_rig(CFG, "cpu")
+    tr = tcam.make_rig(TCFG, "cpu")
     Tt, inl_t, n_t = tpo.optimize_pose(
         t(T0), t(X), t(uv), t(cam).long(), t(isg), t(valid), tr.T_sc,
-        tr.adj_sc, tr.K, cfg=ba)
+        tr.adj_sc, tr.K, cfg=config_from_reference(ba))
     np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), rtol=0, atol=1e-4)
     np.testing.assert_array_equal(inl_t.numpy(), np.asarray(inl_j))
     assert int(n_t) == int(n_j) and 100 <= int(n_t) <= 125

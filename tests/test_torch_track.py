@@ -1,6 +1,9 @@
 """The fused dual-camera tracking step as a whole: a chain of frames through
 the port's make_track_fn against the JAX reference's, each side chaining
-its own pose, velocity and matched slots."""
+its own pose, velocity and matched slots; and the batched entry point
+make_track_batch_fn against the reference's and against the port's own
+one-by-one run.  Both packages run from one config: the port's is the
+reference's through config_from_reference."""
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +19,8 @@ from orbslam2_dualcam_tpu.utils.config import (CameraConfig, OrbConfig,
 from orbslam2_dualcam_tpu.vocab import bow as jbow
 from orbslam2_dualcam_tpu_torch.pipeline import frontend as tfe
 from orbslam2_dualcam_tpu_torch.utils import synthetic as tsyn
-from orbslam2_dualcam_tpu_torch.utils.convert import (desc_to_numpy,
+from orbslam2_dualcam_tpu_torch.utils.convert import (config_from_reference,
+                                                      desc_to_numpy,
                                                       desc_to_torch,
                                                       rig_from_numpy,
                                                       vocab_from_numpy)
@@ -31,6 +35,8 @@ CFG = SystemConfig(
     cameras=(CameraConfig(**_CAM),
              CameraConfig(**_CAM, q_sc=(0.0, 0.0, 1.0, 0.0), t_sc=(0.0, 0.0, 0.10))),
     orb=OrbConfig(n_levels=4))
+TCFG = config_from_reference(CFG)
+DEPTH = 3
 # frame 1 sees only this many stage-1 candidates, fewer than
 # min_matches_motion (20): the widened 30 px retry decides that frame
 N_PREV = 10
@@ -50,7 +56,7 @@ def _setup():
     K, T_sc = np.asarray(jrig.K), np.asarray(jrig.T_sc)
     frames = [np.clip(np.round(jsyn.render_rig(world, K, T_sc, T, H=H, W=W)),
                       0, 255).astype(np.uint8) for T in poses]
-    f = tfe._extract_frame_body(torch.as_tensor(frames[0]), CFG, N_FEATS,
+    f = tfe._extract_frame_body(torch.as_tensor(frames[0]), TCFG, N_FEATS,
                                 vocab_from_numpy(jvoc, "cpu"),
                                 rig_from_numpy(jrig, "cpu")).feats
     store = tsyn.seed_store(world, K, T_sc, poses[0], f.uv.cpu().numpy(),
@@ -61,19 +67,24 @@ def _setup():
     return jrig, jvoc, poses, frames, store, slots
 
 
+def _port_state(device, poses, store, slots):
+    """(T, V, slots, cam_enabled, *map store) as the port's step takes them."""
+    return (torch.as_tensor(poses[0], dtype=torch.float32, device=device),
+            torch.eye(4, device=device),
+            torch.as_tensor(slots, device=device),
+            torch.ones(2, dtype=torch.bool, device=device),
+            torch.as_tensor(store.pos, device=device),
+            desc_to_torch(store.desc, device),
+            torch.as_tensor(store.valid, device=device),
+            torch.as_tensor(store.max_dist, device=device),
+            torch.as_tensor(store.min_dist, device=device),
+            torch.as_tensor(store.normal, device=device))
+
+
 def _run_port(device, jrig, jvoc, poses, frames, store, slots):
-    step = tfe.make_track_fn(CFG, N_FEATS, vocab_from_numpy(jvoc, device),
+    step = tfe.make_track_fn(TCFG, N_FEATS, vocab_from_numpy(jvoc, device),
                              rig_from_numpy(jrig, device), device)
-    mp = (torch.as_tensor(store.pos, device=device),
-          desc_to_torch(store.desc, device),
-          torch.as_tensor(store.valid, device=device),
-          torch.as_tensor(store.max_dist, device=device),
-          torch.as_tensor(store.min_dist, device=device),
-          torch.as_tensor(store.normal, device=device))
-    T = torch.as_tensor(poses[0], dtype=torch.float32, device=device)
-    V = torch.eye(4, device=device)
-    s = torch.as_tensor(slots, device=device)
-    on = torch.ones(2, dtype=torch.bool, device=device)
+    T, V, s, on, *mp = _port_state(device, poses, store, slots)
     outs = []
     for img in frames[1:]:
         _, o = step(torch.as_tensor(img, device=device), T, V, s, on, *mp)
@@ -129,3 +140,85 @@ def test_chain_matches_agree(chains):
         assert abs(int(o.n_final) - n) <= max(3, 0.03 * n), (k, n, int(o.n_final))
         assert (o.mp_slots == r.mp_slots).mean() >= 0.95, k
 
+
+@pytest.fixture(scope="module")
+def batches():
+    """Frames 1..DEPTH through both packages' make_track_batch_fn."""
+    jrig, jvoc, poses, frames, store, slots = _setup()
+    stack = np.stack(frames[1:1 + DEPTH])
+    jbatch = jfe.make_track_batch_fn(CFG, N_FEATS, jvoc, jrig, DEPTH)
+    ref = jax.device_get(jbatch(
+        jnp.asarray(stack), jnp.asarray(poses[0], jnp.float32), jnp.eye(4),
+        jnp.asarray(slots.astype(np.int32)), jnp.ones(2, bool),
+        *(jnp.asarray(x) for x in store[:6])))
+    tbatch = tfe.make_track_batch_fn(TCFG, N_FEATS, vocab_from_numpy(jvoc, "cpu"),
+                                     rig_from_numpy(jrig, "cpu"), DEPTH, "cpu")
+    ours = tbatch(torch.as_tensor(stack), *_port_state("cpu", poses, store, slots))
+    one_by_one = _run_port("cpu", jrig, jvoc, poses, frames[:1 + DEPTH], store, slots)
+    return ref, ours, one_by_one, poses
+
+
+def test_batch_has_leading_axis_on_every_leaf(batches):
+    """(carry, fds, outs) with the reference's structure: every leaf of fds
+    and outs has the reference's shape, leading axis DEPTH included, and
+    the carry is the last frame's (T_cw, V_new, mp_slots)."""
+    ref, (carry, fds, outs), _, _ = batches
+    rcarry, rfds, routs = ref
+    assert type(fds).__name__ == "FrameData" and type(outs).__name__ == "FusedTrackOut"
+    for o, r in zip(list(fds.feats) + [fds.words, fds.nodes] + list(outs),
+                    list(rfds.feats) + [rfds.words, rfds.nodes] + list(routs)):
+        assert tuple(o.shape) == np.asarray(r).shape and o.shape[0] == DEPTH
+    for c, last, r in zip(carry, (outs.T_cw, outs.V_new, outs.mp_slots), rcarry):
+        assert torch.equal(c, last[-1]) and tuple(c.shape) == np.asarray(r).shape
+
+
+def test_batch_equals_one_by_one(batches):
+    """The batch chains the same step on the same carries: every output of
+    every frame equals the one-by-one run exactly."""
+    _, (_, _, outs), one_by_one, _ = batches
+    assert len(one_by_one) == DEPTH
+    for k, single in enumerate(one_by_one):
+        for name, stacked, leaf in zip(outs._fields, outs, single):
+            np.testing.assert_array_equal(stacked[k].numpy(), leaf,
+                                          err_msg=f"frame {k + 1} {name}")
+
+
+def test_batch_matches_reference(batches):
+    """Against the reference's lax.scan batch at the chain test's
+    tolerances: T_cw to 1e-3, V_new to 2e-3, n_final within max(3, 3%),
+    >= 95% of mp_slots equal, per frame; the final carry likewise."""
+    (rcarry, _, routs), (carry, _, outs), _, poses = batches
+    for k in range(DEPTH):
+        np.testing.assert_allclose(outs.T_cw[k].numpy(), routs.T_cw[k], rtol=0,
+                                   atol=1e-3, err_msg=f"frame {k + 1}")
+        assert np.abs(outs.T_cw[k].numpy() - poses[k + 1]).max() < 1e-2
+        np.testing.assert_allclose(outs.V_new[k].numpy(), routs.V_new[k],
+                                   rtol=0, atol=2e-3)
+        n = int(routs.n_final[k])
+        assert n > 100 and abs(int(outs.n_final[k]) - n) <= max(3, 0.03 * n)
+        assert (outs.mp_slots[k].numpy() == routs.mp_slots[k]).mean() >= 0.95
+    np.testing.assert_allclose(carry[0].numpy(), rcarry[0], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(carry[1].numpy(), rcarry[1], rtol=0, atol=2e-3)
+    assert (carry[2].numpy() == rcarry[2]).mean() >= 0.95
+
+
+def test_batch_checks_depth_and_device():
+    """Another number of frames than the batch was built for raises; with
+    no device named and no card, building an entry point raises instead of
+    falling back to the CPU."""
+    jrig = jcam.make_rig(CFG)
+    rig = rig_from_numpy(jrig, "cpu")
+    with pytest.raises(ValueError, match="depth"):
+        tfe.make_track_batch_fn(TCFG, N_FEATS, None, rig, 0, "cpu")
+    batch = tfe.make_track_batch_fn(TCFG, N_FEATS, None, rig, 2, "cpu")
+    with pytest.raises(ValueError, match="built for depth 2"):
+        batch(torch.zeros(3, 2, H, W), *([None] * 10))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tfe.make_track_fn(TCFG, N_FEATS, None, rig)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tfe.make_track_batch_fn(TCFG, N_FEATS, None, rig, 2)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            rig_from_numpy(jrig)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            desc_to_torch(np.zeros((4, 8), np.uint32))
