@@ -2,13 +2,17 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profile    (kernel launches and the card's busy
+                                        time of System.track and of one local
+                                        BA under torch.profiler; no checks)
 
 Drives the port's main paths, the fused dual-camera tracking step
-(orbslam2_dualcam_tpu_torch.pipeline.frontend.make_track_fn) and its
-batched form (make_track_batch_fn), at the reference's operating point:
+(orbslam2_dualcam_tpu_torch.pipeline.frontend.make_track_fn), its batched
+form (make_track_batch_fn) and the monocular SLAM system
+(pipeline.system.System.track), at the reference's operating point:
 2 x 640 x 480 frames, 1300 features per camera, 8 levels x 1.2, a 2048-slot
-map store and a random vocabulary tree of ORBvoc's shape (k=10, depth 6).
-Phases, each raising on failure:
+map store and, for the step, a random vocabulary tree of ORBvoc's shape
+(k=10, depth 6).  Phases, each raising on failure:
 
   1. card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels from csrc/ with nvcc (sm_90a);
@@ -30,7 +34,21 @@ Phases, each raising on failure:
      engages), a per-stage split, the batched path's ms/frame beside the
      one-frame path's in alternating runs, and K1 (the pyramid launch, the
      eight one-level launches, level 0 alone) against its plain version and
-     its bound.
+     its bound;
+  7. the system: System(dual_default(), voc=None, enable_loop_closing=False)
+     on a rendered 45-frame dual orbit (radius 1.5 m, 3.2 deg and 8.4 cm per
+     frame, looking along the tangent: the sideways motion gives the
+     two-view initialization its parallax within two or three frames),
+     synchronous, then with async_mapping=True (frames paced at the
+     synchronous run's median rate), then 20 frames with
+     cfg.tracker.fused_tracking=False (every frame through the host-stepped
+     cascade).  Held to the gates of the reference's mono SLAM test (OK
+     within 15 frames and at the end, <= 3 LOST, >= 4 keyframes, > 150 map
+     points, > 50 triangulated, Sim3-aligned ATE under 9% of the path), one
+     K1 launch per track call, a local BA that lowered its cost, and one
+     solve_ba chunk with host synchronization forbidden; prints the
+     frames/s of System.track, the stage timers, ms per local BA by its
+     (K, M, E) bucket and ms per two_view_init.
 
 The last line of standard output is a JSON object with "ok": true; it is
 printed only when every phase passed.  There is no CPU path: without a
@@ -52,9 +70,10 @@ from orbslam2_dualcam_tpu_torch import _build, dual_default
 from orbslam2_dualcam_tpu_torch.ops import fast_nms as k1
 from orbslam2_dualcam_tpu_torch.ops.camera import make_rig
 from orbslam2_dualcam_tpu_torch.ops.orb import _tables, build_pyramid, level_shapes
-from orbslam2_dualcam_tpu_torch.optim import pose_opt
+from orbslam2_dualcam_tpu_torch.optim import ba, pose_opt
 from orbslam2_dualcam_tpu_torch.pipeline import frontend
-from orbslam2_dualcam_tpu_torch.utils import synthetic
+from orbslam2_dualcam_tpu_torch.pipeline.system import System
+from orbslam2_dualcam_tpu_torch.utils import metrics, synthetic
 from orbslam2_dualcam_tpu_torch.utils.convert import desc_to_numpy, desc_to_torch
 from orbslam2_dualcam_tpu_torch.vocab.bow import Vocabulary
 
@@ -87,6 +106,11 @@ STEP_RAD = 1.2 * math.pi / 90       # per-frame yaw of the orbit (2.4 deg)
 MAX_ROT_ERR_DEG = 0.5
 MAX_CENTER_ERR_M = 0.03
 MIN_N_FINAL = 350
+# The system phase: frames of the orbit, frames of the host-stepped run,
+# and the ATE band of the reference's mono SLAM test (0.30 m on ~3.5 m).
+SYS_FRAMES = 45
+SYS_STEPPED_FRAMES = 20
+SYS_MAX_ATE_OF_PATH = 0.09
 
 
 def log(msg: str) -> None:
@@ -539,6 +563,239 @@ def time_k1(scene: Scene, device) -> dict:
     return r
 
 
+def system_frames(cfg, device):
+    """The rendered dual orbit of the system phase as u8 frames, its
+    ground-truth poses and its path length."""
+    rng = np.random.default_rng(42)
+    world = synthetic.make_box_world(rng, half=6.0)
+    poses = synthetic.orbit_trajectory(SYS_FRAMES, radius=1.5,
+                                       total_angle=0.8 * math.pi)
+    rig = make_rig(cfg)
+    K, T_sc = rig.K.cpu().numpy(), rig.T_sc.cpu().numpy()
+    frames = [np.clip(np.round(synthetic.render_rig(world, K, T_sc, T, H=H, W=W)),
+                      0, 255).astype(np.uint8) for T in poses]
+    centres = np.asarray([-T[:3, :3].T @ T[:3, 3] for T in poses])
+    path = float(np.linalg.norm(np.diff(centres, axis=0), axis=1).sum())
+    return frames, poses, centres, path
+
+
+def run_system(cfg, frames, centres, path, label: str, card: str,
+               async_mapping: bool = False, gates: bool = True,
+               period_ms: float = 0.0):
+    """Drive System.track over `frames` on the current CUDA device, one K1
+    launch per call counted, each call timed between two synchronizations
+    of the card.  With `period_ms`, frame k is not handed over before
+    k * period_ms (a camera's pace: frames fed back to back outrun the
+    mapping thread, which then defers keyframes until the map starves).
+    With `gates`, hold the run to the mono SLAM gates.  Returns the system
+    and a dict of what was measured."""
+    sys_ = System(cfg, voc=None, enable_loop_closing=False,
+                  async_mapping=async_mapping)
+    if sys_.rig.K.device.type != "cuda":
+        raise AssertionError(f"System() landed on {sys_.rig.K.device}")
+    states, ms = [], []
+    t_run = time.perf_counter()
+    for k, img in enumerate(frames):
+        time.sleep(max(0.0, t_run + 1e-3 * k * period_ms - time.perf_counter()))
+        n0 = k1.fast_nms.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states.append(sys_.track(img, k / 30.0))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if k1.fast_nms.launches != n0 + 1:
+            raise AssertionError(
+                f"{label}: frame {k} launched K1 "
+                f"{k1.fast_nms.launches - n0} times, expected exactly 1")
+    sys_.shutdown()
+    if async_mapping and sys_._mapper_thread.is_alive():
+        raise AssertionError(f"{label}: the mapping thread did not stop")
+    tr, mp = sys_.tracker, sys_.mapper
+    traj = tr.composed_trajectory()
+    est = metrics.trajectory_positions(traj)
+    ate = metrics.ate_rmse(est, centres[[t[0] for t in traj]]) if len(traj) > 3 \
+        else float("inf")
+    first_ok = states.index("OK") if "OK" in states else len(states)
+    tracked = ms[first_ok + 1:]
+    n_lost = states.count("LOST")
+    log(f"  {label} ({card}): states OK from frame {first_ok}, {n_lost} LOST, "
+        f"{sys_.map.n_keyframes} keyframes, {sys_.map.n_points} map points, "
+        f"{mp.n_triangulated} triangulated, {mp.n_fused} fused, "
+        f"{mp.n_culled_kf} keyframes culled; fused frames {tr.n_fused_frames}, "
+        f"host-stepped frames {tr.n_stepped_frames} "
+        f"({tr.n_pose_opt_calls} match + pose stages); ATE {ate:.4f} m on a "
+        f"{path:.3f} m path ({ate / path:.4f})")
+    if tracked:
+        pace = (f"frames handed over every {period_ms:.3f} ms, so this is the "
+                f"call's latency, not a throughput: " if period_ms else "")
+        log(f"  {label} ({card}): System.track over {len(tracked)} tracked frames: "
+            f"{pace}{1e3 * len(tracked) / sum(tracked):.3f} calls/s back to back; "
+            f"ms/call median "
+            f"{np.median(tracked):.3f} (min {min(tracked):.3f}, max "
+            f"{max(tracked):.3f}); two_view_init ms "
+            f"{[round(x, 3) for x in tr.two_view_ms]}")
+    log(f"  {label}: events {tr.events}")
+    for who, timer in (("tracker", tr.timer), ("mapper", mp.timer)):
+        log(f"  {label} ({card}) {who} stages (host wall clock):\n    " +
+            timer.report().replace("\n", "\n    "))
+    by_bucket = {}
+    for shape, t0, t1 in mp.ba_shapes:
+        by_bucket.setdefault(shape, []).append(1e3 * (t1 - t0))
+    log(f"  {label} ({card}): local BA ms per call by (K, M, E) bucket: " +
+        "; ".join(f"{shape}: n {len(v)}, median {np.median(v):.3f}"
+                  for shape, v in sorted(by_bucket.items())))
+    if async_mapping:
+        # how much of the mapping thread's BA time ran while a track call
+        # was in progress (both threads queue on one stream)
+        both = sum(max(0.0, min(b1, f1) - max(b0, f0))
+                   for b0, b1 in mp.ba_intervals for f0, f1 in sys_.frame_intervals)
+        ba_total = sum(b1 - b0 for b0, b1 in mp.ba_intervals)
+        log(f"  {label} ({card}): local BA ran {ba_total:.3f} s in all, "
+            f"{both:.3f} s of it ({both / max(ba_total, 1e-9):.4f}) while a "
+            f"track call was in progress")
+    if gates:
+        problems = []
+        if first_ok >= 15 or states[-1] != "OK":
+            problems.append(f"OK first at frame {first_ok}, last {states[-1]}")
+        if n_lost > 3:
+            problems.append(f"{n_lost} LOST frames")
+        if sys_.map.n_keyframes < 4 or sys_.map.n_points <= 150:
+            problems.append(f"{sys_.map.n_keyframes} keyframes, "
+                            f"{sys_.map.n_points} points")
+        if mp.n_triangulated <= 50:
+            problems.append(f"{mp.n_triangulated} triangulated")
+        if tr.n_fused_frames < 1:
+            problems.append("no frame took the fused path")
+        if not ate < SYS_MAX_ATE_OF_PATH * path:
+            problems.append(f"ATE {ate:.4f} m over {SYS_MAX_ATE_OF_PATH} of "
+                            f"{path:.3f} m")
+        if problems:
+            raise AssertionError(f"{label}: " + "; ".join(problems))
+    return sys_, {"states": states, "ms": tracked, "ate": ate, "est": est,
+                  "fids": [t[0] for t in traj]}
+
+
+def check_local_ba(sys_, card: str) -> None:
+    """The last local BA of a run: it lowered its cost; then one chunk of
+    solve_ba on the same problem with host synchronization made an error,
+    and its time between CUDA events."""
+    if sys_.mapper.last_ba is None:
+        raise AssertionError("no local BA ran")
+    prob, res = sys_.mapper.last_ba
+    rig, cfg = sys_.rig, sys_.cfg
+    args = (rig.T_sc, rig.adj_sc, rig.K)
+    cost0 = float(ba.solve_ba(prob, *args, iters=0).cost)
+    cost1 = float(res.cost)
+    if not (math.isfinite(cost1) and cost1 < cost0):
+        raise AssertionError(f"local BA did not lower its cost: {cost0} -> {cost1}")
+    chunk = cfg.ba.abort_chunk
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ba.solve_ba(prob, *args, iters=chunk)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t = time_events(lambda: ba.solve_ba(prob, *args, iters=chunk), 3)
+    shape = (prob.poses.shape[0], prob.points.shape[0], prob.edges.kf.shape[0])
+    log(f"  last local BA, bucket (K, M, E) = {shape}: cost {cost0:.3f} -> "
+        f"{cost1:.3f}; one solve_ba chunk of {chunk} LM steps ran with no host "
+        f"synchronization (sync debug mode: error); ms per chunk ({card}): "
+        + ", ".join(f"{x:.3f}" for x in t))
+
+
+def phase_system(device, card: str) -> int:
+    """Phase 7.  Returns K1's launches over the synchronous run."""
+    import dataclasses
+    cfg = dual_default()
+    t0 = time.perf_counter()
+    frames, _, centres, path = system_frames(cfg, device)
+    log(f"  rendered {len(frames)} frames 2x{H}x{W} in "
+        f"{time.perf_counter() - t0:.1f} s; path {path:.3f} m")
+    torch.cuda.synchronize()
+    k1.fast_nms.launches = 0
+    sync_sys, sync = run_system(cfg, frames, centres, path, "system, synchronous",
+                                card)
+    launches = k1.fast_nms.launches
+    if launches != len(frames):
+        raise AssertionError(f"K1 launched {launches} times over {len(frames)} "
+                             f"System.track calls")
+    check_local_ba(sync_sys, card)
+    period = float(np.median(sync["ms"]))
+    log(f"  async run paced at the synchronous run's median, {period:.3f} ms/frame")
+    run_system(cfg, frames, centres, path, "system, async_mapping", card,
+               async_mapping=True, period_ms=period)
+    stepped_cfg = dataclasses.replace(
+        cfg, tracker=dataclasses.replace(cfg.tracker, fused_tracking=False))
+    st_sys, st = run_system(stepped_cfg, frames[:SYS_STEPPED_FRAMES], centres, path,
+                            "system, host-stepped (fused_tracking=False)", card,
+                            gates=False)
+    tr = st_sys.tracker
+    if st["states"][-1] != "OK" or tr.n_stepped_frames < SYS_STEPPED_FRAMES // 2 \
+            or tr.n_fused_frames != 0:
+        raise AssertionError(
+            f"host-stepped run: last state {st['states'][-1]}, "
+            f"{tr.n_stepped_frames} host-stepped and {tr.n_fused_frames} fused frames")
+    log(f"  host-stepped run: {tr.n_pose_opt_calls} match + pose stages "
+        f"(one optimize_pose each) over {tr.n_stepped_frames} frames: "
+        f"{tr.n_pose_opt_calls / tr.n_stepped_frames:.2f} per frame (the fused "
+        f"step makes 3)")
+    return launches
+
+
+def profile_system(device, card: str, n_warm: int = 8, n_prof: int = 5) -> None:
+    """`--profile`: the synchronous system under torch.profiler for n_prof
+    tracked frames after n_warm, and one 15-step local BA on the last
+    window: kernel launches and the card's busy time against the wall
+    time.  The profiler slows the host, so the wall times here are not the
+    system's; the launch counts and the busy time are."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def totals(prof):
+        launches, busy_us = 0, 0.0
+        for e in prof.key_averages():
+            if e.key.startswith("cudaLaunchKernel") or e.key == "cuLaunchKernel":
+                launches += e.count
+            busy_us += getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+        return launches, busy_us / 1e3
+
+    cfg = dual_default()
+    frames, _, _, _ = system_frames(cfg, device)
+    sys_ = System(cfg, voc=None, enable_loop_closing=False)
+    for k in range(n_warm):
+        sys_.track(frames[k], k / 30.0)
+    torch.cuda.synchronize()
+    n_kf0 = sum(e.startswith("KF@") for e in sys_.tracker.events)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for k in range(n_warm, n_warm + n_prof):
+            sys_.track(frames[k], k / 30.0)
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    launches, busy = totals(prof)
+    n_kf = sum(e.startswith("KF@") for e in sys_.tracker.events) - n_kf0
+    log(f"  profiler, {n_prof} System.track calls ({n_kf} keyframes inserted, each "
+        f"with a full local-mapping pass) ({card}): {launches / n_prof:.0f} kernel launches per "
+        f"call, card busy {busy / n_prof:.3f} ms of {wall / n_prof:.3f} ms per call "
+        f"under the profiler: idle share {1 - busy / wall:.4f}")
+    prob, _ = sys_.mapper.last_ba
+    args = (sys_.rig.T_sc, sys_.rig.adj_sc, sys_.rig.K)
+    iters = cfg.ba.local_iters_a + cfg.ba.local_iters_b
+    ba.solve_ba(prob, *args, iters=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ba.solve_ba(prob, *args, iters=iters)
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    launches, busy = totals(prof)
+    shape = (prob.poses.shape[0], prob.points.shape[0], prob.edges.kf.shape[0])
+    log(f"  profiler, one solve_ba of {iters} LM steps, bucket (K, M, E) = {shape} "
+        f"({card}): {launches} kernel launches, card busy {busy:.3f} ms of "
+        f"{wall:.3f} ms under the profiler")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -546,18 +803,22 @@ def main() -> int:
         return 1
     device = torch.device("cuda", torch.cuda.current_device())
     t_start = time.perf_counter()
+    if sys.argv[1:] == ["--profile"]:
+        _build.load_library()
+        profile_system(device, card_line())
+        return 0
 
     # 1. card
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/6] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/7] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {name}, count {torch.cuda.device_count()}")
 
     # 2. build
     t0 = time.perf_counter()
     built = not _build.library_path().exists()
     _build.load_library()
-    log(f"[2/6] build: {'compiled' if built else 'cached'} "
+    log(f"[2/7] build: {'compiled' if built else 'cached'} "
         f"{_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
@@ -565,14 +826,14 @@ def main() -> int:
 
     # 3. K1 against its plain version
     k1_err = phase_k1(device)
-    log(f"[3/6] K1 agrees with its plain version at all level shapes, one level "
+    log(f"[3/7] K1 agrees with its plain version at all level shapes, one level "
         f"per launch and the pyramid in one launch (max |err| {k1_err})")
 
     # 4. the one-frame path at full width
     cfg = dual_default()
     t0 = time.perf_counter()
     scene = Scene(cfg, device)
-    log(f"[4/6] scene: {N_FRAMES} frames 2x{H}x{W}, {scene.n_feats} features/camera, "
+    log(f"[4/7] scene: {N_FRAMES} frames 2x{H}x{W}, {scene.n_feats} features/camera, "
         f"{int(scene.store.valid.sum())}/{scene.cap} store slots seeded, vocabulary "
         f"k=10 depth 6 ({sum(c.numel() * 4 for c in scene.voc.centroids) / 1e6:.1f} MB) "
         f"in {time.perf_counter() - t0:.1f} s")
@@ -591,7 +852,7 @@ def main() -> int:
     if batch_launches != DEPTH:
         raise AssertionError(f"K1 launched {batch_launches} times over a batch of "
                              f"{DEPTH} frames, expected 1 per frame")
-    log(f"[5/6] batched path: {DEPTH} frames equal the one-by-one run exactly; "
+    log(f"[5/7] batched path: {DEPTH} frames equal the one-by-one run exactly; "
         f"K1 launches {batch_launches} ({batch_launches / DEPTH:g} per frame)")
 
     # 6. timing
@@ -599,7 +860,7 @@ def main() -> int:
     t_span, spans = run_chain_with_spans(scene, device)
     t_rand = time_random(scene, device)
     med = float(np.median(t_rend))
-    log(f"[6/6] step ms/frame ({card}): rendered chain median {med:.3f} "
+    log(f"[6/7] step ms/frame ({card}): rendered chain median {med:.3f} "
         f"(min {min(t_rend):.3f}, max {max(t_rend):.3f}); random frames "
         f"(widened retry) median {np.median(t_rand):.3f} "
         f"(max {max(t_rand):.3f})")
@@ -630,16 +891,28 @@ def main() -> int:
     log("  K1 one level per launch, device-only us: " + ", ".join(
         f"{h}x{w} {t * us:.2f}" for (_, h, w), t in zip(k["shapes"], k["level_device_ms"])))
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    log(f"  peak device memory {peak:.0f} MiB; total {time.perf_counter() - t_start:.0f} s")
+    log(f"  peak device memory {peak:.0f} MiB; {time.perf_counter() - t_start:.0f} s so far")
 
-    # launches: the one-frame chain's and the batch's, each counted from 0
-    # just before its path ran; times: the pyramid launch, as both paths
+    # 7. the system at full width
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sys_launches = phase_system(device, card)
+    log(f"[7/7] system: System.track initialized, tracked, mapped and bundle-"
+        f"adjusted the orbit synchronously and with async_mapping; K1 launches "
+        f"{sys_launches} over {SYS_FRAMES} track calls (1 per call); peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB; phase "
+        f"{time.perf_counter() - t0:.0f} s, total "
+        f"{time.perf_counter() - t_start:.0f} s")
+
+    # launches: the one-frame chain's, the batch's and the synchronous
+    # system run's, each counted from 0 just before its path ran; times: the pyramid launch, as both paths
     # call it, on the main path's own data
     print(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda",
         "source": "orbslam2_dualcam_tpu_torch/csrc/fast_nms.cu",
         "replaces": "orbslam2_dualcam_tpu/ops/pallas_kernels.py:115",
         "launches": launches, "launches_batched_path": batch_launches,
+        "launches_system_path": sys_launches,
         "max_abs_err": k1_err,
         "ms": k["pyramid_device_ms"], "per_call_ms": k["pyramid_call_ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

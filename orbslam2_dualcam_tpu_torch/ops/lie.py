@@ -133,6 +133,40 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     return se3(so3_exp(phi), _V_matrix(phi) @ rho)
 
 
+def hat_batch(v: torch.Tensor) -> torch.Tensor:
+    """hat over leading axes: [..., 3] -> [..., 3, 3]."""
+    z = torch.zeros_like(v[..., 0])
+    return torch.stack([
+        torch.stack([z, -v[..., 2], v[..., 1]], -1),
+        torch.stack([v[..., 2], z, -v[..., 0]], -1),
+        torch.stack([-v[..., 1], v[..., 0], z], -1)], -2)
+
+
+def se3_exp_batch(xi: torch.Tensor) -> torch.Tensor:
+    """se3_exp over leading axes: [..., 6] -> [..., 4, 4], the same series
+    and closed forms as se3_exp, element by element."""
+    rho, phi = xi[..., :3], xi[..., 3:6]
+    theta2 = (phi * phi).sum(-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    K = hat_batch(phi)
+    KK = K @ K
+    small = theta2 <= _EPS
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / theta2)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / (theta2 * theta))
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device)
+    a, b, c = a[..., None, None], b[..., None, None], c[..., None, None]
+    R = eye + a * K + b * KK
+    V = eye + b * K + c * KK
+    T = torch.zeros((*xi.shape[:-1], 4, 4), dtype=xi.dtype, device=xi.device)
+    T[..., :3, :3] = R
+    T[..., :3, 3] = (V @ rho[..., None])[..., 0]
+    T[..., 3, 3] = 1.0
+    return T
+
+
 def se3_log(T: torch.Tensor) -> torch.Tensor:
     phi = so3_log(T[:3, :3])
     rho = torch.linalg.solve(_V_matrix(phi), T[:3, 3])

@@ -1,7 +1,11 @@
-"""The fused per-frame dual-camera tracking step and its batched form.
+"""The per-frame device programs of the pipeline: extraction, the fused
+dual-camera tracking step and its batched form, projection matching for
+fusion, and keyframe-pair triangulation.
 
-Port of orbslam2_dualcam_tpu/pipeline/frontend.py (make_track_fn,
-make_track_batch_fn and what they call): extraction on both cameras + BoW quantization, stage-1
+Port of orbslam2_dualcam_tpu/pipeline/frontend.py (make_extract_fn,
+make_track_fn, make_track_batch_fn, project_and_match[_batch],
+match_projection_pose, triangulate_pair[s_batch]; the two vocabulary
+matchers wait for the relocalization slice).  The fused step: extraction on both cameras + BoW quantization, stage-1
 motion-model projection matching + pose optimization with the widened
 retry, stage-2 local-map rematch + re-optimization, pose
 re-orthonormalization and the velocity update.
@@ -19,7 +23,7 @@ import numpy as np
 import torch
 
 from orbslam2_dualcam_tpu_torch.utils.config import BAConfig, SystemConfig
-from orbslam2_dualcam_tpu_torch.ops import camera, matching, orb
+from orbslam2_dualcam_tpu_torch.ops import camera, epipolar, lie, matching, orb
 from orbslam2_dualcam_tpu_torch.ops.camera import CameraRig
 from orbslam2_dualcam_tpu_torch.optim import pose_opt
 from orbslam2_dualcam_tpu_torch.utils.device import resolve_device
@@ -251,9 +255,9 @@ def _stack_leaves(items):
     return type(first)(*(_stack_leaves(list(xs)) for xs in zip(*items)))
 
 
-def _checked_body(cfg: SystemConfig, n_feats: int,
-                  voc: Optional[bow.Vocabulary], rig: CameraRig, device):
-    """The step on `device` (None: the current CUDA device), after checking
+def _checked_device(rig: CameraRig, voc: Optional[bow.Vocabulary],
+                    device) -> torch.device:
+    """`device` resolved (None: the current CUDA device), after checking
     that the rig and the vocabulary lie there.
 
     Float32 matrix products on this path must run in full f32: TF32 is
@@ -267,7 +271,32 @@ def _checked_body(cfg: SystemConfig, n_feats: int,
             raise ValueError(f"rig tensor on {t.device}, step on {device}")
     if voc is not None and any(c.device != device for c in voc.centroids):
         raise ValueError(f"vocabulary not on {device}")
+    return device
+
+
+def _checked_body(cfg: SystemConfig, n_feats: int,
+                  voc: Optional[bow.Vocabulary], rig: CameraRig, device):
+    """The step on `device`, after `_checked_device`."""
+    device = _checked_device(rig, voc, device)
     return _make_track_body(cfg, n_feats, voc, rig, device)
+
+
+def make_extract_fn(cfg: SystemConfig, n_feats: int,
+                    voc: Optional[bow.Vocabulary], rig: CameraRig,
+                    device=None):
+    """Build the per-frame extraction program on `device`; None means the
+    current CUDA device, and raises where there is none.
+
+    The returned function takes images [ncam, H, W] (u8 or f32) on `device`
+    and returns the FrameData of `n_feats` keypoints per camera."""
+    device = _checked_device(rig, voc, device)
+
+    def extract_frame(images: torch.Tensor) -> FrameData:
+        if images.device != device:
+            raise ValueError(f"images on {images.device}, extraction on {device}")
+        return _extract_frame_body(images, cfg, n_feats, voc, rig)
+
+    return extract_frame
 
 
 def make_track_fn(cfg: SystemConfig, n_feats: int,
@@ -319,3 +348,88 @@ def make_track_batch_fn(cfg: SystemConfig, n_feats: int,
         return carry, _stack_leaves(fds), _stack_leaves(outs)
 
     return track_batch
+
+
+def project_and_match_batch(T_preds, feats_uv, feats_desc, feats_level,
+                            feats_valid, mp_pos, mp_desc, mp_valid,
+                            mp_max_dist, mp_min_dist, mp_normal,
+                            rig: CameraRig, radius, level_scales, max_hamming,
+                            view_cos_th, cam_enabled):
+    """project_and_match over a batch of target keyframes sharing one
+    map-point set: the Fuse fan-out of SearchInNeighbors
+    (LocalMapping.cc:492-570), which projects the same points into every
+    covisible neighbour.  The reference vmaps; here the targets are a loop
+    (each is already batched over cameras), so every row equals the
+    one-target call exactly.
+
+    Leading axis of T_preds/feats_* is the target keyframe; returns
+    (mp_of_kp [B, ncam, N], vis_any [B, M])."""
+    outs = [project_and_match(
+        T_preds[i], feats_uv[i], feats_desc[i], feats_level[i],
+        feats_valid[i], mp_pos, mp_desc, mp_valid, mp_max_dist, mp_min_dist,
+        mp_normal, rig, radius, level_scales, max_hamming, view_cos_th,
+        cam_enabled) for i in range(T_preds.shape[0])]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
+def triangulate_pair(T1, T2, cam: int, uv1, desc1, level1, free1,
+                     uv2, desc2, level2, free2, rig: CameraRig,
+                     level_scales, max_hamming):
+    """New-map-point triangulation between two keyframes for one camera.
+
+    LocalMapping::CreateNewMapPoints' inner loop (LocalMapping.cc:275-490):
+    fundamental matrix from the two rig poses through camera `cam`'s
+    extrinsic (ComputeF12, :812-873), epipolar-gated descriptor matching
+    (SearchForTriangulation, ORBmatcher.cc:1253-1427), DLT triangulation
+    and cheirality/parallax/reprojection checks.
+
+    `cam` is a host int; free1/free2 mask keypoints not yet bound to a map
+    point.  Returns (idx2_of_1 [N], X_world [N,3], good [N])."""
+    K = rig.K[cam]
+    T_sc = rig.T_sc[cam]
+    T1c = T_sc @ T1
+    T2c = T_sc @ T2
+    F12 = epipolar.fundamental_from_poses(K, T1c, K, T2c)
+    # epipole of camera 1 in image 2
+    c1 = -T1c[:3, :3].T @ T1c[:3, 3]
+    x2 = lie.se3_apply(T2c, c1)
+    ez = torch.where(x2[2].abs() > 1e-9, x2[2], torch.full_like(x2[2], 1e-9))
+    ep = torch.stack([K[0, 0] * x2[0] / ez + K[0, 2],
+                      K[1, 1] * x2[1] / ez + K[1, 2]])
+    sigma2_2 = level_scales[level2] ** 2
+    allow = matching.epipolar_mask(F12, uv1, uv2, sigma2_2, ep, 100.0)
+    # epipolar lines admit many repeated-texture candidates: require a
+    # mutual best match and a ratio margin to keep association pure (the
+    # reference gets the same effect from BoW-node restriction,
+    # ORBmatcher.cc:1253-1427)
+    res = matching.match_masked(desc1, desc2, allow=allow, valid_a=free1,
+                                valid_b=free2, max_dist=max_hamming,
+                                ratio=0.8, mutual=True)
+    idx = res.idx
+    m = idx >= 0
+    sel = torch.where(m, idx, torch.zeros_like(idx))
+    P1 = epipolar.projection_matrix(K, T1c)
+    P2 = epipolar.projection_matrix(K, T2c)
+    X = epipolar.triangulate_dlt(P1, P2, uv1, uv2[sel])
+    s1 = level_scales[level1] ** 2
+    s2 = sigma2_2[sel]
+    good = m & epipolar.triangulation_checks(
+        T1c, T2c, X, K, K, uv1, uv2[sel], s1, s2)
+    return idx, X, good
+
+
+def triangulate_pairs_batch(T1, T2, cam, uv1, desc1, level1, free1,
+                            uv2, desc2, level2, free2, rig: CameraRig,
+                            level_scales, max_hamming):
+    """triangulate_pair over (neighbour, camera) pairs: the
+    CreateNewMapPoints fan-out (LocalMapping.cc:275-490).  All arguments
+    except rig/level_scales/max_hamming carry a leading pair axis (T1
+    included: the current keyframe repeats); `cam` is a host sequence of
+    ints.  A loop over the pairs, so every row equals the one-pair call
+    exactly."""
+    outs = [triangulate_pair(T1[i], T2[i], int(cam[i]), uv1[i], desc1[i],
+                             level1[i], free1[i], uv2[i], desc2[i], level2[i],
+                             free2[i], rig, level_scales, max_hamming)
+            for i in range(T1.shape[0])]
+    return tuple(torch.stack([o[j] for o in outs]) for j in range(3))

@@ -1,0 +1,192 @@
+"""System facade: construction, per-frame entry, savers.
+
+Port of orbslam2_dualcam_tpu/pipeline/system.py (src/System.cc in the
+original): builds the map, tracker and local mapper and exposes the
+per-frame TrackDual-style entry plus trajectory/map savers in the
+reference's ``x y z qx qy qz qw [id]`` text format (System.cc:335-410).
+
+The original spawns LocalMapping/LoopClosing threads (System.cc:116-150);
+here stages run synchronously by default (deterministic).
+`async_mapping=True` moves the local-mapping work onto a background thread
+fed by a keyframe queue, with the map guarded by a coarse lock exactly
+where the original holds mMutexMapUpdate.  Both threads launch on the same
+CUDA stream, so their device work is serial; what overlaps is the mapper's
+device work with the tracker's host work and the reverse.
+
+This slice runs without a vocabulary: loop closing with a vocabulary, the
+viewer, a device mesh and deferred tracking raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import List
+
+import numpy as np
+
+import torch
+
+from orbslam2_dualcam_tpu_torch.models.map import Map
+from orbslam2_dualcam_tpu_torch.ops import camera, lie
+from orbslam2_dualcam_tpu_torch.pipeline.local_mapping import LocalMapper
+from orbslam2_dualcam_tpu_torch.pipeline.tracking import Tracker, _waits
+from orbslam2_dualcam_tpu_torch.utils.config import SystemConfig
+from orbslam2_dualcam_tpu_torch.utils.device import resolve_device
+
+
+class System:
+    def __init__(self, cfg: SystemConfig, voc=None,
+                 enable_loop_closing: bool = True,
+                 async_mapping: bool = False,
+                 mesh=None, viewer: bool = False,
+                 viewer_port: int = 0,
+                 deferred_tracking: bool = False, device=None) -> None:
+        """`device`: where every device program of the system runs; None is
+        the current CUDA device and raises where there is none.
+
+        `enable_loop_closing` has no effect without a vocabulary, as in
+        the reference.  A vocabulary, `mesh`, `viewer=True` and
+        `deferred_tracking=True` belong to later slices of the port and
+        raise NotImplementedError."""
+        if voc is not None:
+            raise _waits("relocalization" if not enable_loop_closing
+                         else "loop-closing",
+                         "System with a vocabulary (relocalization by "
+                         "vocabulary, the cross-camera bootstrap"
+                         + (", loop closing)" if enable_loop_closing else ")"))
+        if mesh is not None:
+            raise _waits("distributed-BA", "System with a device mesh")
+        if viewer:
+            raise _waits("surface (CLI, tools, viewer)", "The live viewer")
+        if deferred_tracking:
+            raise _waits("deferred-tracking", "System(deferred_tracking=True)")
+        self.cfg = cfg
+        self.mesh = None
+        self.device = resolve_device(device)
+        self.rig = camera.make_rig(cfg, device=self.device)
+        self.map = Map()
+        self.voc = None
+        self.kfdb = None
+        self.loop_closer = None
+        self.mapper = LocalMapper(cfg, self.rig, self.map)
+        self._async = async_mapping
+        self.map_lock = threading.Lock()
+        self.frame_intervals: List[tuple] = []   # (t0, t1) per track() call
+        if async_mapping:
+            self._kf_queue: "queue.Queue" = queue.Queue()
+            self._stop = threading.Event()
+            # local BA yields: drops map_lock while each LM chunk runs on
+            # the device, and aborts when the tracker queued another keyframe
+            # (the reference's InterruptBA, LocalMapping.cc:97-108)
+            self.mapper.map_lock = self.map_lock
+            self.mapper.interrupt_check = lambda: not self._kf_queue.empty()
+            self._mapper_thread = threading.Thread(
+                target=self._mapping_loop, daemon=True)
+            self._mapper_thread.start()
+            front = _AsyncMapperProxy(self)
+        else:
+            front = self.mapper
+        self.tracker = Tracker(cfg, self.rig, None, self.map, None,
+                               local_mapper=front)
+        if async_mapping:
+            # KF back-pressure (the reference's LocalMapping idle check):
+            # with >=2 keyframes queued, defer further insertions
+            self.tracker.mapper_busy = \
+                lambda: self._kf_queue.qsize() >= 2
+        self.viewer = None
+
+    # ------------------------------------------------------------------
+    def track(self, images: np.ndarray, timestamp: float) -> str:
+        """Per-frame entry (System::TrackDual, System.cc:153-180).
+        images: [ncam, H, W] uint8/float grayscale (uint8 preferred: it
+        uploads 4x fewer bytes; float inputs are quantized to u8 at the
+        device boundary either way, Tracker._stage_images)."""
+        images = np.asarray(images)
+        import time as _time
+        t0 = _time.monotonic()
+        try:
+            if self._async:
+                with self.map_lock:
+                    return self.tracker.process(images, timestamp)
+            return self.tracker.process(images, timestamp)
+        finally:
+            self.frame_intervals.append((t0, _time.monotonic()))
+
+    def _mapping_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                kf, run_ba = self._kf_queue.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            with self.map_lock:
+                self.mapper.on_new_keyframe(kf, run_ba=run_ba)
+
+    def shutdown(self) -> None:
+        self.tracker.flush()
+        if self._async:
+            while not self._kf_queue.empty():
+                import time
+                time.sleep(0.01)
+            self._stop.set()
+            self._mapper_thread.join(timeout=5.0)
+
+    def activate_localization_mode(self) -> None:
+        """Track against the frozen map without extending it
+        (System::ActivateLocalizationMode, System.cc:182-199)."""
+        self.tracker.localization_only = True
+
+    def deactivate_localization_mode(self) -> None:
+        self.tracker.localization_only = False
+
+    def set_compulsory_lost(self) -> None:
+        """Force LOST on the next frame (System.cc:330-333)."""
+        self.tracker.force_lost()
+
+    def reset(self) -> None:
+        """System/Tracking reset (Tracking.cc:1863-1918)."""
+        self.map.clear()
+        self.tracker.reset_state()
+        self.mapper.recent_mids.clear()
+
+    # ------------------------------------------------------------------
+    # savers (System.cc:335-410 formats)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _pose_line(T_cw: np.ndarray, suffix: str = "") -> str:
+        T_wc = np.linalg.inv(T_cw)
+        t = T_wc[:3, 3]
+        # small host math stays on the host: an explicit CPU tensor
+        q = lie.rot_to_quat(torch.as_tensor(
+            T_wc[:3, :3].astype(np.float32), device="cpu")).numpy()
+        return (f"{t[0]:.7f} {t[1]:.7f} {t[2]:.7f} "
+                f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}{suffix}")
+
+    def save_frame_trajectory(self, path: str) -> None:
+        """SaveFramePoseTcw (System.cc:372-391): per-frame camera poses."""
+        with open(path, "w") as f:
+            for fid, ts, T in self.tracker.composed_trajectory():
+                f.write(self._pose_line(T, f" {fid}") + "\n")
+
+    def save_keyframe_trajectory(self, path: str) -> None:
+        with open(path, "w") as f:
+            for kid in sorted(self.map.keyframes):
+                kf = self.map.keyframes[kid]
+                f.write(self._pose_line(kf.T_cw, f" {kid}") + "\n")
+
+    def save_map_points(self, path: str) -> None:
+        with open(path, "w") as f:
+            for mid in sorted(self.map.points):
+                p = self.map.points[mid].pos
+                f.write(f"{p[0]:.7f} {p[1]:.7f} {p[2]:.7f} {mid}\n")
+
+
+class _AsyncMapperProxy:
+    """Queue-facing stand-in handed to the Tracker in async mode (the
+    reference's LocalMapping::InsertKeyFrame queue, LocalMapping.h:123)."""
+
+    def __init__(self, system: System) -> None:
+        self._system = system
+
+    def on_new_keyframe(self, kf, run_ba: bool = True) -> None:
+        self._system._kf_queue.put((kf, run_ba))

@@ -1,0 +1,1137 @@
+"""Tracking front end: per-frame state machine.
+
+Port of orbslam2_dualcam_tpu/pipeline/tracking.py (src/Tracking.cc in the
+original): the state machine, keyframe policy and map bookkeeping run on
+the host over numpy mirrors; every per-frame numeric step (extraction,
+projection matching, pose optimization, two-view initialization) is a
+device program from pipeline/frontend.py and ops/, on the device the rig's
+tensors lie on.
+
+States: NOT_INITIALIZED -> OK -> LOST (FULL is reached only once the dual
+map is metric, which needs the dual-bootstrap slice).
+
+What this slice holds: the synchronous mode without a vocabulary, that is
+two-view initialization, the fused one-readback frame with its host-stepped
+fallback cascade, keyframe insertion, and the no-vocabulary relocalization.
+The deferred (pipelined) mode, relocalization by vocabulary and the
+cross-camera bootstrap raise NotImplementedError.
+
+Host <-> device traffic per tracked frame: one pinned upload of the u8
+images, one pinned upload of the packed map store, and one readback of all
+result leaves behind a single stream synchronization.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Set, Tuple
+
+import numpy as np
+import torch
+
+from orbslam2_dualcam_tpu_torch.models.map import (KeyFrame, Map,
+                                                   update_point_stats)
+from orbslam2_dualcam_tpu_torch.ops import matching, ransac
+from orbslam2_dualcam_tpu_torch.ops.camera import CameraRig
+from orbslam2_dualcam_tpu_torch.optim import ba
+from orbslam2_dualcam_tpu_torch.pipeline import ba_pack, frontend
+from orbslam2_dualcam_tpu_torch.utils.config import SystemConfig
+from orbslam2_dualcam_tpu_torch.utils.device import (resolve_device, to_host,
+                                                      upload)
+from orbslam2_dualcam_tpu_torch.utils.profiling import StageTimer
+
+
+@dataclass
+class HostFrame:
+    """Numpy mirror of one frame's device features."""
+
+    frame_id: int
+    timestamp: float
+    uv: np.ndarray        # [ncam, N, 2]
+    level: np.ndarray     # [ncam, N]
+    angle: np.ndarray
+    desc: np.ndarray      # [ncam, N, 8] uint32
+    valid: np.ndarray     # [ncam, N] bool
+    words: np.ndarray
+    nodes: np.ndarray
+    T_cw: np.ndarray | None = None
+    mp_ids: np.ndarray | None = None    # [ncam, N] map-point mid or -1
+    response: np.ndarray | None = None  # [ncam, N] FAST score
+    # device copies of (uv, desc, level, angle, valid), made on first use
+    dev: tuple | None = None
+
+    @property
+    def ncam(self) -> int:
+        return self.uv.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.uv.shape[1]
+
+
+class _Staging:
+    """A reusable host buffer for uploads: pinned when the target is a CUDA
+    device, so the copy does not block the host.  The buffer is rewritten
+    only after the previous copy out of it has finished."""
+
+    def __init__(self, shape, dtype: torch.dtype, device: torch.device) -> None:
+        self.device = device
+        self.buf = torch.empty(shape, dtype=dtype,
+                               pin_memory=device.type == "cuda")
+        self.np = self.buf.numpy()
+        self._done = None
+
+    def begin(self) -> np.ndarray:
+        """The buffer as numpy, free to be rewritten."""
+        if self._done is not None:
+            self._done.synchronize()
+        return self.np
+
+    def send(self) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return self.buf.clone()
+        out = self.buf.to(self.device, non_blocking=True)
+        self._done = torch.cuda.Event()
+        self._done.record(torch.cuda.current_stream(self.device))
+        return out
+
+
+# float32 columns of the packed store: pos 0:3, desc bits 3:11, normal
+# 11:14, dmin 14, dmax 15, valid 16
+_STORE_COLS = 17
+
+
+class DeviceMapStore:
+    """Device-resident padded SoA of the tracker's local map points,
+    consumed by the fused track step (frontend.make_track_fn).
+
+    The host repacks it once per tracked frame from the authoritative host
+    map, which buys staleness-freedom (local BA rewrites point positions
+    with no epoch signal the host could cheaply key off) while keeping the
+    per-frame device traffic at one upload (the reference reads the live
+    map under mMutexMapUpdate every stage, Tracking.cc:283).  The six
+    arrays travel as one staging buffer and are cut apart on the device."""
+
+    def __init__(self, cap: int, device=None) -> None:
+        """`device` None is the current CUDA device."""
+        self.cap = cap
+        self.device = resolve_device(device)
+        self.slot_mids = np.full(cap, -1, np.int64)
+        self._sorted_mids = np.empty(0, np.int64)
+        self._order = np.empty(0, np.int64)
+        self.arrays = None   # (pos, desc, valid, dmax, dmin, normal)
+        self._stage = _Staging((cap, _STORE_COLS), torch.float32, self.device)
+
+    @property
+    def n_valid(self) -> int:
+        return int((self.slot_mids >= 0).sum())
+
+    def refresh(self, m: Map, mids: np.ndarray, sticky: bool = False) -> None:
+        """Repack from the host map.  sticky=True keeps surviving mids in
+        their existing slots and fills freed slots with new mids (for a
+        pipeline that dispatches frame k+1 before frame k's slot references
+        are read back, where slot identity must survive refreshes)."""
+        cap = self.cap
+        mids = np.asarray(mids, np.int64)[:cap]
+        if sticky and self.arrays is not None:
+            keep = np.isin(self.slot_mids, mids) & (self.slot_mids >= 0)
+            assigned = np.where(keep, self.slot_mids, -1)
+            new = np.setdiff1d(mids, assigned[keep])
+            free = np.nonzero(assigned < 0)[0]
+            k = min(free.size, new.size)
+            assigned[free[:k]] = new[:k]
+            mids = assigned
+        buf = self._stage.begin()
+        buf[:] = 0.0
+        buf[:, 15] = 1e9
+        desc = buf[:, 3:11].view(np.uint32)
+        slot_mids = np.full(cap, -1, np.int64)
+        for i, mid in enumerate(mids):
+            mp = m.points.get(int(mid))
+            if mp is None or mp.is_bad:
+                continue
+            buf[i, 0:3] = mp.pos
+            desc[i] = mp.desc
+            buf[i, 11:14] = mp.normal
+            buf[i, 14] = mp.min_dist
+            buf[i, 15] = mp.max_dist if mp.max_dist > 0 else 1e9
+            buf[i, 16] = 1.0
+            slot_mids[i] = mid
+        self.slot_mids = slot_mids
+        self._order = np.argsort(slot_mids)
+        self._sorted_mids = slot_mids[self._order]
+        d = self._stage.send()
+        self.arrays = (d[:, 0:3].contiguous(),
+                       d[:, 3:11].contiguous().view(torch.int32),
+                       d[:, 16] > 0.5, d[:, 15].contiguous(),
+                       d[:, 14].contiguous(), d[:, 11:14].contiguous())
+
+    def slots_of_mids(self, mids: np.ndarray) -> np.ndarray:
+        """Vectorized mid -> store slot (-1 when absent).  -1 queries stay
+        -1 (slot_mids uses -1 for empty slots, so a naive lookup would
+        "find" them)."""
+        mids = np.asarray(mids, np.int64)
+        if self._sorted_mids.size == 0 or mids.size == 0:
+            return np.full(mids.shape, -1, np.int64)
+        j = np.clip(np.searchsorted(self._sorted_mids, mids), 0,
+                    self._sorted_mids.size - 1)
+        hit = (self._sorted_mids[j] == mids) & (mids >= 0)
+        return np.where(hit, self._order[j], -1)
+
+    def slots_to_mids(self, slots: np.ndarray) -> np.ndarray:
+        out = np.full(slots.shape, -1, np.int64)
+        ok = slots >= 0
+        out[ok] = self.slot_mids[slots[ok]]
+        return out
+
+
+def _waits(slice_name: str, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: it waits for the {slice_name} slice")
+
+
+class Tracker:
+    NOT_INITIALIZED = "NOT_INITIALIZED"
+    OK = "OK"
+    FULL = "FULL"
+    LOST = "LOST"
+
+    def __init__(self, cfg: SystemConfig, rig: CameraRig,
+                 voc=None, slam_map: Optional[Map] = None, kfdb=None,
+                 local_mapper=None, mesh=None,
+                 deferred: bool = False) -> None:
+        """Runs on the device the rig's tensors lie on."""
+        if voc is not None or kfdb is not None:
+            raise _waits("relocalization",
+                         "Tracker with a vocabulary or a keyframe database "
+                         "(relocalization by vocabulary, the cross-camera "
+                         "bootstrap)")
+        if deferred:
+            raise _waits("deferred-tracking",
+                         "Tracker(deferred=True), the pipelined and batched "
+                         "tracker modes,")
+        if mesh is not None:
+            raise _waits("distributed-BA", "Tracker with a device mesh")
+        self.cfg = cfg
+        self.rig = rig
+        self.device = rig.K.device
+        self.voc = None
+        self.map = slam_map if slam_map is not None else Map()
+        self.kfdb = None
+        self.local_mapper = local_mapper
+        self.state = self.NOT_INITIALIZED
+
+        self.extract = frontend.make_extract_fn(cfg, cfg.orb.n_track, None,
+                                                rig, device=self.device)
+        # 2x feature budget while NOT_INITIALIZED (mpIniORBextractor,
+        # Tracking.cc:204-207): a denser candidate pool makes the two-view
+        # init both more likely to find 100 matches and better conditioned.
+        # KeyFrames keep the uniform n_track shape: the init frames are
+        # down-selected before KF creation (_shrink_frame)
+        self.extract_init = (
+            frontend.make_extract_fn(cfg, cfg.orb.n_init, None, rig,
+                                     device=self.device)
+            if cfg.orb.n_init != cfg.orb.n_track else self.extract)
+        # fused tracking (frontend.make_track_fn): the whole per-frame hot
+        # path as one stream of launches + one batched readback
+        self._track_fused = (
+            frontend.make_track_fn(cfg, cfg.orb.n_track, None, rig,
+                                   device=self.device)
+            if cfg.tracker.fused_tracking else None)
+        self._store: Optional[DeviceMapStore] = None
+        self.deferred = False
+        self.map_lock = None
+        # async back-pressure: when the mapping thread is behind, defer
+        # keyframe insertion instead of queueing unboundedly (the
+        # reference's idle check, Tracking.cc:1553-1560)
+        self.mapper_busy: Optional[Callable[[], bool]] = None
+        self.scale_factors = np.asarray(cfg.orb.scale_factors, np.float32)
+        self._level_scales = torch.as_tensor(self.scale_factors,
+                                             device=self.device)
+        # host copies of the rig, read once
+        self._T_sc_np, self._K_np = to_host((rig.T_sc, rig.K))
+        self._img_stage: Optional[_Staging] = None
+
+        self.frame_id = 0
+        self.last: Optional[HostFrame] = None
+        self.velocity: Optional[np.ndarray] = None
+        self.ref_kid: int = -1
+        self.last_kf_frame_id: int = -1
+        self.init_frame: Optional[HostFrame] = None
+        self.n_track_inliers = 0
+        self._last_slot_mids = np.empty(0, np.int64)
+        # RANSAC minimal sets are drawn on the CPU, so a run on the card and
+        # a run on the CPU draw the same; `two_view_sampler` may be replaced
+        # by a callable (n_hyp, valid) -> (idx_h, idx_f) to feed given sets
+        self.gen = torch.Generator().manual_seed(int(cfg.vocab.seed))
+        self.two_view_sampler = (
+            lambda n_hyp, valid: ransac.two_view_samples(self.gen, n_hyp,
+                                                         valid))
+        # localization-only mode: track against the frozen map, no new
+        # keyframes/mapping (ActivateLocalizationMode, System.cc:182-199)
+        self.localization_only = False
+        # manual fault injection (SetCompulsoryLost, System.cc:330-333)
+        self._force_lost = False
+        # diagnostics
+        self.timer = StageTimer()
+        self.trajectory: List[Tuple] = []
+        self.events: List[str] = []
+        self.n_fused_frames = 0      # frames whose pose came from the fused step
+        self.n_stepped_frames = 0    # frames tracked by the host-stepped cascade
+        self.n_pose_opt_calls = 0    # optimize_pose calls of the host-stepped path
+        self.two_view_ms: List[float] = []
+
+    def reset_state(self) -> None:
+        """Clear every per-run field (Tracking::Reset, Tracking.cc:1863-
+        1918).  Kid numbering restarts at 0 after Map.clear()."""
+        self.state = self.NOT_INITIALIZED
+        self.last = None
+        self.velocity = None
+        self.ref_kid = -1
+        self.last_kf_frame_id = -1
+        self.init_frame = None
+        self.n_track_inliers = 0
+        self.localization_only = False
+        self._force_lost = False
+        self.trajectory.clear()
+        self._store = None
+
+    # ------------------------------------------------------------------
+    def process(self, images: np.ndarray, timestamp: float) -> str:
+        """Main per-frame entry (System::TrackDual -> Tracking::GrabImageDual,
+        System.cc:153-180).  images [ncam, H, W] u8 or float grayscale."""
+        with self._lock():
+            return self._process_sync(images, timestamp)
+
+    def _lock(self):
+        return (self.map_lock if self.map_lock is not None
+                else contextlib.nullcontext())
+
+    def _process_sync(self, images: np.ndarray, timestamp: float,
+                      fid: Optional[int] = None) -> str:
+        frame = None
+        fused_out = None
+        if self._can_fuse():
+            with self.timer("fused"):
+                r = self._dispatch_fused(images, timestamp, fid=fid)
+            if r is not None:
+                frame, fused_out = r
+        if frame is None:
+            with self.timer("extract"):
+                ex = (self.extract_init
+                      if self.state == self.NOT_INITIALIZED
+                      else self.extract)
+                fd = ex(self._stage_images(images))
+                frame = self._pull(to_host(self._fd_leaves(fd)), timestamp,
+                                   frame_id=fid)
+        if fid is None:
+            self.frame_id += 1
+
+        if self._force_lost and self.state in (self.OK, self.FULL):
+            self._force_lost = False
+            self.state = self.LOST
+            self.events.append(f"FORCED_LOST@{frame.frame_id}")
+        if self.state == self.NOT_INITIALIZED:
+            with self.timer("initialize"):
+                self._monocular_initialization(frame)
+        elif self.state in (self.OK, self.FULL):
+            with self.timer("track"):
+                ok = self._track(frame, fused=fused_out)
+            if not ok:
+                self.state = self.LOST
+                self.events.append(f"LOST@{frame.frame_id}")
+        if self.state == self.LOST:
+            if self._relocalize(frame):
+                self.state = self.OK
+                self.events.append(f"RELOC@{frame.frame_id}")
+
+        self._record_trajectory(frame, timestamp)
+        self.last = frame
+        return self.state
+
+    def _record_trajectory(self, frame: HostFrame, timestamp: float) -> None:
+        """Store the pose RELATIVE to the reference keyframe so later
+        BA / loop corrections retro-apply at save time, as the
+        reference's mlRelativeFramePoses does (System.cc:340-370)."""
+        if frame.T_cw is None:
+            return
+        ref = self.map.keyframes.get(self.ref_kid)
+        if ref is not None:
+            T_rel = frame.T_cw @ np.linalg.inv(ref.T_cw)
+            self.trajectory.append(
+                (frame.frame_id, timestamp, self.ref_kid, T_rel,
+                 frame.T_cw.copy()))
+
+    # ------------------------------------------------------------------
+    # fused tracking
+    # ------------------------------------------------------------------
+    def _can_fuse(self) -> bool:
+        return (self._track_fused is not None
+                and self.state in (self.OK, self.FULL)
+                and not self._force_lost
+                and self.last is not None and self.last.T_cw is not None
+                and self.last.mp_ids is not None
+                and int((self.last.mp_ids >= 0).sum()) >= 10)
+
+    def _dispatch_fused(self, images: np.ndarray, ts: float,
+                        fid: Optional[int] = None):
+        """Run the whole tracked frame as one stream of launches + ONE
+        batched readback (frontend.make_track_fn).  Returns (HostFrame,
+        (out, slot_mids)) or None to fall back to the host-stepped path."""
+        last = self.last
+        # refreshed at dispatch time, under whatever map lock the caller
+        # holds, so the packed snapshot is consistent with the host map
+        self._refresh_store(last)
+        st = self._store
+        if st is None or st.n_valid < 10:
+            return None
+        prev_slots = st.slots_of_mids(last.mp_ids)
+        V = self.velocity if self.velocity is not None else np.eye(4)
+        fd, out = self._track_fused(
+            self._stage_images(images),
+            upload(last.T_cw.astype(np.float32), self.device),
+            upload(V.astype(np.float32), self.device),
+            upload(prev_slots, self.device),
+            upload(self._cam_enabled(), self.device), *st.arrays)
+        fd_leaves = self._fd_leaves(fd)
+        host = to_host(fd_leaves + list(out))
+        fd_h = host[:len(fd_leaves)]
+        out_h = frontend.FusedTrackOut(*host[len(fd_leaves):])
+        return (self._pull(fd_h, ts, frame_id=fid),
+                (out_h, st.slot_mids.copy()))
+
+    def _finish_fused(self, frame: HostFrame, out,
+                      slot_mids: np.ndarray) -> bool:
+        """Adopt the fused step's pose/matches and run the shared per-frame
+        bookkeeping (the host half of TrackLocalMap, Tracking.cc:1478-
+        1520).  `slot_mids` is the store slot->mid table as of this frame's
+        dispatch."""
+        cfg = self.cfg
+        frame.T_cw = np.asarray(out.T_cw, np.float64)
+        mp_slots = np.asarray(out.mp_slots)
+        mids = np.full(mp_slots.shape, -1, np.int64)
+        ok = mp_slots >= 0
+        mids[ok] = slot_mids[mp_slots[ok]]
+        frame.mp_ids = mids
+        n_final = int(out.n_final)
+        self.n_track_inliers = n_final
+        if n_final < cfg.tracker.min_matches_track:
+            frame.T_cw = None
+            frame.mp_ids = np.full_like(frame.mp_ids, -1)
+            return False
+        found_mids = {int(mid) for mid in frame.mp_ids[frame.mp_ids >= 0]}
+        vis_mids = set(found_mids)
+        vis = np.asarray(out.mp_visible)
+        vis_mids.update(
+            int(m) for m in slot_mids[vis & (slot_mids >= 0)])
+        for mid in vis_mids:
+            mp = self.map.points.get(mid)
+            if mp is not None:
+                mp.n_visible += 1
+                if mid in found_mids:
+                    mp.n_found += 1
+        self.n_fused_frames += 1
+        return self._track_tail(frame)
+
+    def flush(self) -> str:
+        """Nothing is in flight in the synchronous mode."""
+        return self.state
+
+    def _to_u8(self, images: np.ndarray) -> np.ndarray:
+        if images.dtype == np.uint8 or not self.cfg.tracker.images_u8:
+            return images.astype(np.float32, copy=False) \
+                if images.dtype != np.uint8 else images
+        return np.clip(np.round(images), 0, 255).astype(np.uint8)
+
+    def _stage_images(self, images: np.ndarray) -> torch.Tensor:
+        """Upload one frame's images through a pinned staging buffer, as
+        uint8 when cfg.tracker.images_u8 (4x fewer bytes; 8-bit grayscale
+        is the reference's native input domain, GrabImageDual
+        Tracking.cc:236-269); the extraction converts to f32 on the device
+        either way."""
+        img = self._to_u8(np.asarray(images))
+        dtype = torch.uint8 if img.dtype == np.uint8 else torch.float32
+        st = self._img_stage
+        if st is None or st.np.shape != img.shape or st.buf.dtype != dtype:
+            st = self._img_stage = _Staging(img.shape, dtype, self.device)
+        st.begin()[...] = img
+        return st.send()
+
+    def _refresh_store(self, frame: HostFrame, sticky: bool = False) -> bool:
+        """Repack the device-resident local map around `frame`'s view.
+        Returns False (and drops the store, so no caller can dispatch
+        against stale geometry) when the view is too point-starved."""
+        tracked = (np.unique(frame.mp_ids[frame.mp_ids >= 0])
+                   if frame.mp_ids is not None else np.empty(0, np.int64))
+        cap = self.cfg.tracker.fused_cap
+        others = (np.setdiff1d(self._local_map_points(frame), tracked)
+                  if tracked.size else np.empty(0, np.int64))
+        mids = np.concatenate([tracked, others])[:cap]
+        if mids.size < 10:
+            self._store = None
+            return False
+        if self._store is None or self._store.cap != cap:
+            self._store = DeviceMapStore(cap, self.device)
+        with self.timer("store_refresh"):
+            self._store.refresh(self.map, mids, sticky=sticky)
+        return True
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _fd_leaves(fd: frontend.FrameData) -> list:
+        f = fd.feats
+        return [f.uv, f.level, f.angle, f.desc, f.valid, fd.words, fd.nodes,
+                f.response]
+
+    def _pull(self, fd_h: list, ts: float,
+              frame_id: Optional[int] = None) -> HostFrame:
+        """HostFrame from the host copies of `_fd_leaves`."""
+        uv, level, angle, desc, valid, words, nodes, response = fd_h
+        return HostFrame(
+            frame_id=self.frame_id if frame_id is None else frame_id,
+            timestamp=ts, uv=uv, level=level, angle=angle,
+            desc=desc.view(np.uint32), valid=valid, words=words, nodes=nodes,
+            mp_ids=np.full(valid.shape, -1, np.int64), response=response)
+
+    # ------------------------------------------------------------------
+    # initialization (Tracking.cc:1928-2112)
+    # ------------------------------------------------------------------
+    def _monocular_initialization(self, frame: HostFrame) -> None:
+        cfg = self.cfg
+        n_valid = int(frame.valid[0].sum())
+        if self.init_frame is None:
+            if n_valid >= cfg.init.min_matches:
+                self.init_frame = frame
+            return
+        if n_valid < cfg.init.min_matches:
+            self.init_frame = None
+            return
+        f0 = self.init_frame
+        dev = self.device
+        # SearchForInitialization: 100px window, ratio 0.9, rotation check
+        uv_a, uv_b = upload(f0.uv[0], dev), upload(frame.uv[0], dev)
+        res = matching.match_masked(
+            upload(f0.desc[0], dev), upload(frame.desc[0], dev),
+            allow=matching.window_mask(uv_a, uv_b, 100.0),
+            valid_a=upload(f0.valid[0], dev),
+            valid_b=upload(frame.valid[0], dev),
+            max_dist=float(cfg.matcher.th_low), ratio=0.9,
+            angle_a=upload(f0.angle[0], dev),
+            angle_b=upload(frame.angle[0], dev))
+        idx = to_host((res.idx,))[0]
+        rows0 = np.nonzero(idx >= 0)[0]
+        if len(rows0) < cfg.init.min_matches:
+            self.init_frame = frame      # slide the window
+            return
+        rows1 = idx[rows0]
+        tv = self._two_view(f0.uv[0][rows0], frame.uv[0][rows1])
+        if not bool(tv.success):
+            return
+        self._create_initial_map(f0, frame, rows0, rows1, tv)
+
+    def _two_view(self, uv1: np.ndarray, uv2: np.ndarray) -> ransac.TwoViewResult:
+        """two_view_init on the device; the result's leaves come back as
+        numpy after one wait."""
+        import time
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        valid = torch.ones(len(uv1), dtype=torch.bool, device=self.device)
+        idx_h, idx_f = self.two_view_sampler(cfg.init.ransac_iters, valid)
+        tv = ransac.two_view_solve(
+            idx_h.to(self.device), idx_f.to(self.device),
+            upload(uv1.astype(np.float32), self.device),
+            upload(uv2.astype(np.float32), self.device), valid,
+            self.rig.K[0], sigma=cfg.init.sigma,
+            min_parallax_deg=cfg.init.min_parallax_deg,
+            min_triangulated=cfg.init.min_triangulated)
+        tv = ransac.TwoViewResult(*to_host(tv))
+        self.two_view_ms.append(1e3 * (time.perf_counter() - t0))
+        return tv
+
+    def _create_initial_map(self, f0: HostFrame, f1: HostFrame,
+                            rows0: np.ndarray, rows1: np.ndarray,
+                            tv: ransac.TwoViewResult) -> None:
+        """CreateInitialMapMonocular (Tracking.cc:2007-2112): two KFs, the
+        triangulated points, a 20-iteration global BA, then median-depth
+        normalization to depth 1."""
+        cfg = self.cfg
+        inl = np.asarray(tv.inliers)
+        pts = np.asarray(tv.points)
+        T21 = np.asarray(tv.T_21)
+
+        med = float(np.median(pts[inl, 2]))
+        if med <= 0 or inl.sum() < cfg.init.min_triangulated:
+            return
+        pts = pts / med
+        T21 = T21.copy()
+        T21[:3, 3] /= med
+
+        m = self.map
+        # init frames carry the 2x n_init budget (Tracking.cc:204-207);
+        # down-select to the uniform n_track KeyFrame shape, keeping every
+        # triangulated row
+        f0s, map0 = self._shrink_frame(f0)
+        f1s, map1 = self._shrink_frame(f1)
+        kf0 = self._make_keyframe(f0s, np.eye(4, dtype=np.float64))
+        kf1 = self._make_keyframe(f1s, T21.astype(np.float64))
+        for i in np.nonzero(inl)[0]:
+            r0 = int(map0[rows0[i]])
+            r1 = int(map1[rows1[i]])
+            if r0 < 0 or r1 < 0:    # dropped by the n_track down-select
+                continue
+            mp = m.new_point(pts[i], kf1.kid, 0)
+            m.add_observation(mp, kf0, r0, 0)
+            m.add_observation(mp, kf1, r1, 0)
+            update_point_stats(mp, m, self._T_sc_np, self.scale_factors)
+        m.update_connections(kf0)
+        m.update_connections(kf1)
+
+        # global BA, then re-normalize median scene depth to 1 (the BA can
+        # move the gauge): Tracking.cc:2045-2087
+        self._global_ba_two(kf0, kf1, iters=cfg.ba.global_iters)
+        depths = [float(lie_apply_z(kf1.T_cw, p.pos))
+                  for p in m.points.values()]
+        med2 = float(np.median(depths)) if depths else 1.0
+        if med2 > 0:
+            s = 1.0 / med2
+            for kf in (kf0, kf1):
+                kf.T_cw[:3, 3] *= s
+            for p in m.points.values():
+                p.pos = p.pos * s
+                update_point_stats(p, m, self._T_sc_np, self.scale_factors)
+
+        f1.T_cw = kf1.T_cw.copy()
+        f1.mp_ids[0][rows1[inl]] = [
+            kf1.mp_idx[int(map1[int(r)])] if map1[int(r)] >= 0 else -1
+            for r in rows1[inl]]
+        self.ref_kid = kf1.kid
+        self.last_kf_frame_id = f1.frame_id
+        self.velocity = None
+        self.state = self.OK
+        self.events.append(
+            f"INIT@{f1.frame_id} pts={m.n_points}")
+        if self.local_mapper is not None:
+            self.local_mapper.on_new_keyframe(kf0, run_ba=False)
+            self.local_mapper.on_new_keyframe(kf1, run_ba=False)
+        self.init_frame = None
+
+    def _shrink_frame(self, frame: HostFrame):
+        """Down-select an n_init-sized init frame to the uniform n_track
+        shape by descending FAST response: the 2x budget's extra (weaker)
+        corners strengthen the two-view RANSAC geometry but would degrade
+        the persistent map if triangulated.  Returns (shrunk HostFrame,
+        row_map [n] old->new or -1)."""
+        n_out = self.cfg.orb.n_track
+        ncam, n = frame.valid.shape
+        if n <= n_out:
+            return frame, np.arange(n)
+        resp = (frame.response if frame.response is not None
+                else np.zeros((ncam, n), np.float32))
+        sels = []
+        row_map = np.full(n, -1, np.int64)
+        for c in range(ncam):
+            key = np.where(frame.valid[c], resp[c], -np.inf)
+            sel = np.argsort(-key, kind="stable")[:n_out]
+            sels.append(sel)
+            if c == 0:
+                row_map[sel] = np.arange(len(sel))
+        sels = np.stack(sels)                                   # [ncam, n_out]
+        gather = lambda a: np.stack([a[c][sels[c]] for c in range(ncam)])
+        out = HostFrame(
+            frame_id=frame.frame_id, timestamp=frame.timestamp,
+            uv=gather(frame.uv), level=gather(frame.level),
+            angle=gather(frame.angle), desc=gather(frame.desc),
+            valid=gather(frame.valid), words=gather(frame.words),
+            nodes=gather(frame.nodes), T_cw=frame.T_cw,
+            mp_ids=np.full((ncam, n_out), -1, np.int64),
+            response=gather(resp))
+        return out, row_map
+
+    def _global_ba_two(self, kf0: KeyFrame, kf1: KeyFrame, iters: int):
+        prob, all_kids, mids, meta = ba_pack.pack_problem(
+            self.map, [kf0.kid, kf1.kid], fixed_kids={kf0.kid},
+            level_sigma2=self.scale_factors ** 2, ncam=self.cfg.n_cameras,
+            device=self.device)
+        res = ba.solve_ba(prob, self.rig.T_sc, self.rig.adj_sc, self.rig.K,
+                          iters=iters)
+        ba_pack.unpack_result(self.map, res, all_kids, mids, meta,
+                              chi2_th=self.cfg.ba.chi2_mono)
+
+    # ------------------------------------------------------------------
+    # tracking (Tracking.cc:271-447)
+    # ------------------------------------------------------------------
+    def _track(self, frame: HostFrame, fused=None) -> bool:
+        cfg = self.cfg
+        if fused is not None:
+            out, slot_mids = fused
+            # only a healthy stage-1 accepts the fused result: on a thin
+            # motion-model the host cascade (ref-KF attempts, windowless
+            # descriptor match) is affordable and more accurate than a
+            # stage-2 rescue
+            if int(out.n_stage1) >= cfg.tracker.min_matches_motion:
+                return self._finish_fused(frame, out, slot_mids)
+            # thin motion-model result: fall through to the host-stepped
+            # cascade below (rare; the fused stage-1 work is discarded, its
+            # extraction is reused)
+        last = self.last
+        if self.velocity is not None:
+            T_pred = self.velocity @ last.T_cw
+        else:
+            T_pred = last.T_cw.copy()
+
+        # stage 1: motion-model matching against last frame's map points;
+        # on a thin result retry once with a doubled window, the
+        # reference's recovery inside TrackWithMotionModel
+        # (Tracking.cc:1407-1414)
+        mids1 = np.unique(last.mp_ids[last.mp_ids >= 0])
+        r1 = self._match_stage(frame, T_pred, mids1, radius=15.0,
+                               max_hamming=float(cfg.matcher.th_high))
+        n1 = int(r1.n_inliers) if r1 is not None else 0
+        slot_mids_r1 = self._last_slot_mids
+        if n1 < cfg.tracker.min_matches_motion:
+            # widened retry, keeping whichever result is BETTER: a wider
+            # window on ambiguous texture can harvest aliased matches that
+            # diverge the pose opt, so the retry must never clobber an
+            # acceptable narrow-window result
+            r1b = self._match_stage(frame, T_pred, mids1, radius=30.0,
+                                    max_hamming=float(cfg.matcher.th_high))
+            n1b = int(r1b.n_inliers) if r1b is not None else 0
+            if n1b > n1:
+                r1, n1 = r1b, n1b
+                slot_mids_r1 = self._last_slot_mids
+        if r1 is not None and n1 >= cfg.tracker.min_matches_motion:
+            T_cur = np.asarray(r1.T_cw)
+            frame_mp = self._slots_to_mids(r1, slot_mids=slot_mids_r1)
+        else:
+            # fallback cascade, mirroring the reference's
+            # TrackWithMotionModel -> TrackReferenceKeyFrame order
+            # (Tracking.cc:347-361).  (a) reference-KF points in a wide
+            # window from the LAST pose (survives a broken velocity
+            # model); (b) the same points with NO spatial window at
+            # strict th_low, the role of SearchByBoW
+            # (ORBmatcher.cc:50-145), which matches purely by descriptor
+            # so it survives abrupt turns whose optical flow exceeds any
+            # fixed window; (c) a thin-but-usable motion-model result
+            # (the reference accepts >=10 map matches, Tracking.cc:1451).
+            ref = self.map.keyframes.get(self.ref_kid)
+            mids2 = (np.unique(ref.mp_idx[ref.mp_idx >= 0])
+                     if ref is not None else np.empty(0, np.int64))
+            # evaluate the fallbacks and keep the highest-consensus pose,
+            # each seeded from the velocity-predicted pose AND the last
+            # pose; inlier count is the arbiter the reference's sequential
+            # cascade approximates
+            attempts = [(T_pred, mids2, 30.0, float(cfg.matcher.th_high)),
+                        (last.T_cw, mids2, 30.0, float(cfg.matcher.th_high)),
+                        (T_pred, mids2, 1e5, float(cfg.matcher.th_low)),
+                        (last.T_cw, mids2, 1e5, float(cfg.matcher.th_low))]
+            T_cur = None
+            best_n = 0
+            for T_seed, mids_a, radius, ham in attempts:
+                r2 = self._match_stage(frame, T_seed, mids_a,
+                                       radius=radius, max_hamming=ham)
+                n2 = int(r2.n_inliers) if r2 is not None else 0
+                if n2 >= cfg.tracker.min_matches_track and n2 > best_n:
+                    best_n = n2
+                    T_cur = np.asarray(r2.T_cw)
+                    frame_mp = self._slots_to_mids(r2)
+            if T_cur is None and ref is not None:
+                # last resort before LOST: the whole covisibility region
+                # of the reference KF in a wide window from the predicted
+                # pose (covers map starvation where last frame's tracked
+                # set has shrunk to a sliver but the region still holds
+                # points)
+                mids3 = self._region_points(self.ref_kid)
+                r3w = self._match_stage(frame, T_pred, mids3, radius=60.0,
+                                        max_hamming=float(
+                                            cfg.matcher.th_high))
+                if r3w is not None and (int(r3w.n_inliers)
+                                        >= cfg.tracker.min_matches_track):
+                    T_cur = np.asarray(r3w.T_cw)
+                    frame_mp = self._slots_to_mids(r3w)
+            if T_cur is None:
+                if r1 is not None and n1 >= cfg.tracker.min_matches_track:
+                    T_cur = np.asarray(r1.T_cw)
+                    frame_mp = self._slots_to_mids(r1, slot_mids=slot_mids_r1)
+                else:
+                    return False
+
+        # stage 2: track local map (Tracking.cc:1478-1520); widen the
+        # window when tracking is thin (Tracking.cc:1652-1657)
+        frame.T_cw = T_cur
+        frame.mp_ids = frame_mp
+        local_mids = self._local_map_points(frame)
+        n_stage1 = int((frame_mp >= 0).sum())
+        r2 = 6.0 if n_stage1 >= 50 else 10.0
+        r3 = self._match_stage(frame, T_cur, local_mids, radius=r2,
+                               max_hamming=float(cfg.matcher.th_low))
+        if r3 is not None:
+            n3 = int(r3.n_inliers)
+            if n3 >= cfg.tracker.min_matches_track:
+                frame.T_cw = np.asarray(r3.T_cw)
+                frame.mp_ids = self._slots_to_mids(r3)
+        n_final = int((frame.mp_ids >= 0).sum())
+        self.n_track_inliers = n_final
+        if n_final < cfg.tracker.min_matches_track:
+            # failed mid-way: drop the partially-assigned pose so the LOST
+            # frame never records a garbage trajectory entry
+            frame.T_cw = None
+            frame.mp_ids = np.full_like(frame.mp_ids, -1)
+            return False
+
+        # bookkeeping: found/visible counters.  The reference increments
+        # visible for every frustum-visible candidate in SearchLocalPoints
+        # and found only for tracked inliers (Tracking.cc:1617-1705): that
+        # asymmetry is what makes the found-ratio culling gate bite.
+        found_mids = {int(mid) for mid in frame.mp_ids[frame.mp_ids >= 0]}
+        vis_mids = set(found_mids)
+        if r3 is not None:
+            vis = np.asarray(r3.mp_visible)[:len(self._last_slot_mids)]
+            vis_mids.update(int(m) for m in
+                            self._last_slot_mids[np.nonzero(vis)[0]])
+        for mid in vis_mids:
+            mp = self.map.points.get(mid)
+            if mp is not None:
+                mp.n_visible += 1
+                if mid in found_mids:
+                    mp.n_found += 1
+
+        self.n_stepped_frames += 1
+        return self._track_tail(frame)
+
+    def _track_tail(self, frame: HostFrame) -> bool:
+        """Post-pose per-frame bookkeeping shared by the fused and
+        host-stepped paths: velocity model, reference-KF update, keyframe
+        policy (Tracking.cc:324-447).  The dual bootstrap that follows in
+        the reference needs a keyframe database, which this slice refuses
+        at construction."""
+        self.velocity = frame.T_cw @ np.linalg.inv(self.last.T_cw)
+        self._update_ref_kid(frame)
+        if not self.localization_only and self._need_new_keyframe(frame):
+            self._create_keyframe(frame)
+        if self.localization_only:
+            return True
+        self._update_full_state(frame)
+        return True
+
+    def _match_stage(self, frame: HostFrame, T_pred: np.ndarray,
+                     mids: np.ndarray, radius: float, max_hamming: float,
+                     cam_enabled=None):
+        """Pack map points `mids` into padded device arrays and run the
+        projection-match + pose-opt step.  Returns a TrackResult whose
+        leaves are numpy (one readback), or None when too few points."""
+        cap = self.cfg.capacity.max_local_mp
+        mids = mids[:cap]
+        M = len(mids)
+        if M < 10:
+            return None
+        # the reference's padded size (power of FOUR, min 256); the
+        # truncation above is semantics, the padding only masked work
+        cap = min(cap, max(256, 4 ** int(np.ceil(np.log2(M) / 2))))
+        pos = np.zeros((cap, 3), np.float32)
+        desc = np.zeros((cap, 8), np.uint32)
+        normal = np.zeros((cap, 3), np.float32)
+        dmin = np.zeros(cap, np.float32)
+        dmax = np.full(cap, 1e9, np.float32)
+        valid = np.zeros(cap, bool)
+        for i, mid in enumerate(mids):
+            mp = self.map.points.get(int(mid))
+            if mp is None or mp.is_bad:
+                continue
+            pos[i] = mp.pos
+            desc[i] = mp.desc
+            normal[i] = mp.normal
+            dmin[i] = mp.min_dist
+            dmax[i] = mp.max_dist if mp.max_dist > 0 else 1e9
+            valid[i] = True
+        if valid.sum() < 10:
+            return None
+        dev = self.device
+        fdev = frame.dev
+        if fdev is None:
+            # the frame's features go up once and serve every stage
+            fdev = (upload(frame.uv, dev), upload(frame.desc, dev),
+                    upload(frame.level, dev), upload(frame.angle, dev),
+                    upload(frame.valid, dev))
+            frame.dev = fdev
+        res = frontend.match_projection_pose(
+            upload(T_pred.astype(np.float32), dev), *fdev,
+            upload(pos, dev), upload(desc, dev), upload(valid, dev),
+            upload(dmax, dev), upload(dmin, dev), upload(normal, dev),
+            self.rig, float(radius), self._level_scales,
+            float(max_hamming), 0.5,
+            upload(self._cam_enabled() if cam_enabled is None
+                   else cam_enabled, dev),
+            ba=self.cfg.ba)
+        self.n_pose_opt_calls += 1
+        self._last_slot_mids = mids
+        return frontend.TrackResult(*to_host(res))
+
+    def _cam_enabled(self) -> np.ndarray:
+        """Sibling cameras join tracking only once the map is metric
+        (bMapScaled gating, ORBmatcher.cc:128-144)."""
+        ncam = self.cfg.n_cameras
+        en = np.zeros(ncam, bool)
+        en[0] = True
+        if self.map.map_scaled or ncam == 1:
+            en[:] = True
+        return en
+
+    def _slots_to_mids(self, res: frontend.TrackResult,
+                       slot_mids: Optional[np.ndarray] = None) -> np.ndarray:
+        """Map slot indices back to map-point ids.  `slot_mids` is the mids
+        array the result's _match_stage call packed (defaults to the most
+        recent call's; pass it explicitly when a later stage ran since)."""
+        table = self._last_slot_mids if slot_mids is None else slot_mids
+        slots = np.asarray(res.mp_ids)
+        out = np.full(slots.shape, -1, np.int64)
+        ok = slots >= 0
+        out[ok] = table[slots[ok]]
+        return out
+
+    def _local_map_points(self, frame: HostFrame) -> np.ndarray:
+        """UpdateLocalKeyFrames/Points (Tracking.cc:1707-1860): KFs sharing
+        observations with the current frame + their covisible neighbours;
+        all their points."""
+        counts: Dict[int, int] = {}
+        for mid in frame.mp_ids[frame.mp_ids >= 0]:
+            mp = self.map.points.get(int(mid))
+            if mp is None:
+                continue
+            for kid in mp.obs:
+                counts[kid] = counts.get(kid, 0) + 1
+        if not counts:
+            return np.empty(0, np.int64)
+        local_kids = sorted(counts, key=counts.get, reverse=True)
+        local_kids = local_kids[:self.cfg.tracker.local_kf_limit]
+        extra = []
+        for kid in local_kids[:10]:
+            kf = self.map.keyframes.get(kid)
+            if kf is not None:
+                extra.extend(self.map.covisible_kfs(kf, 10))
+        seen = set()
+        mids: List[int] = []
+        for kid in local_kids + extra:
+            kf = self.map.keyframes.get(kid)
+            if kf is None or kid in seen:
+                continue
+            seen.add(kid)
+            for mid in kf.mp_idx[kf.mp_idx >= 0]:
+                mids.append(int(mid))
+        return np.unique(np.asarray(mids, np.int64))
+
+    def _update_ref_kid(self, frame: HostFrame) -> None:
+        counts: Dict[int, int] = {}
+        for mid in frame.mp_ids[frame.mp_ids >= 0]:
+            mp = self.map.points.get(int(mid))
+            if mp is None:
+                continue
+            for kid in mp.obs:
+                counts[kid] = counts.get(kid, 0) + 1
+        if counts:
+            self.ref_kid = max(counts, key=counts.get)
+
+    # ------------------------------------------------------------------
+    # keyframe policy (Tracking.cc:1523-1615)
+    # ------------------------------------------------------------------
+    def _need_new_keyframe(self, frame: HostFrame) -> bool:
+        cfg = self.cfg
+        # hard keyframe capacity (CapacityConfig.max_keyframes): at the
+        # cap, EVICT the keyframe least covisible with the current view so
+        # the local map around the camera survives; redundancy culling
+        # (LocalMapping KeyFrameCulling) frees slots first when it can.
+        # Never silent: each eviction logs an event.
+        if self.map.n_keyframes >= cfg.capacity.max_keyframes:
+            if not self._evict_for_capacity(frame):
+                if not self.events or not self.events[-1].startswith("KFCAP"):
+                    self.events.append(
+                        f"KFCAP@{frame.frame_id} n={self.map.n_keyframes}")
+                return False
+        ref = self.map.keyframes.get(self.ref_kid)
+        if ref is None:
+            return False
+        since_busy = frame.frame_id - self.last_kf_frame_id
+        if (self.mapper_busy is not None and self.mapper_busy()
+                and since_busy < cfg.tracker.max_frames_between_kf):
+            return False
+        # reference tracked-point count (KeyFrame::TrackedMapPoints with
+        # minObs 3, or 2 while the map has <=2 KFs, Tracking.cc:1541-1545)
+        min_obs = 3 if self.map.n_keyframes > 2 else 2
+        n_ref = 0
+        for mid in ref.mp_idx[ref.mp_idx >= 0]:
+            mp = self.map.points.get(int(mid))
+            if mp is not None and mp.n_obs >= min_obs:
+                n_ref += 1
+        since = frame.frame_id - self.last_kf_frame_id
+        c1 = since >= cfg.tracker.max_frames_between_kf
+        # reference mono uses mMinFrames=0 (KF every frame when the mapper
+        # is idle, Tracking.cc:1560)
+        c1b = since >= max(cfg.tracker.min_frames_between_kf, 1)
+        c2 = (self.n_track_inliers < cfg.tracker.kf_ref_ratio * max(n_ref, 1)
+              and self.n_track_inliers > cfg.tracker.min_matches_track)
+        return bool((c1 or c1b) and c2)
+
+    def _evict_for_capacity(self, frame: HostFrame) -> bool:
+        """Erase the keyframe least relevant to the current view so a new
+        one can be inserted at capacity.  Victim = lowest covisibility
+        weight with the reference KF (0 if disconnected), oldest first on
+        ties; gauge/bootstrap-critical and recent KFs are protected."""
+        m = self.map
+        ref = m.keyframes.get(self.ref_kid)
+        ref_w = dict(ref.covis) if ref is not None else {}
+        recent = set(sorted(m.keyframes.keys())[-5:])
+        best, best_key = None, None
+        for kid, kf in m.keyframes.items():
+            if (kid == m.origin_kid or kid == m.first_scale_kid or
+                    kid == self.ref_kid or kid in recent or
+                    kf.not_erase or kf.connected_to_second_map):
+                continue
+            key = (ref_w.get(kid, 0), kid)
+            if best_key is None or key < best_key:
+                best, best_key = kf, key
+        if best is None:
+            return False
+        m.erase_keyframe(best)
+        self.events.append(
+            f"KFEVICT@{frame.frame_id} kid={best.kid} "
+            f"w={best_key[0]} n={m.n_keyframes}")
+        return True
+
+    def _make_keyframe(self, frame: HostFrame, T_cw: np.ndarray) -> KeyFrame:
+        """Flatten per-camera features into the global concatenated layout
+        (Frame.cc:179-196) and register the KF."""
+        ncam, N = frame.valid.shape
+        kf = KeyFrame(
+            kid=self.map.new_kid(), frame_id=frame.frame_id,
+            T_cw=np.asarray(T_cw, np.float64).copy(),
+            uv=frame.uv.reshape(ncam * N, 2).astype(np.float64),
+            kp_cam=np.repeat(np.arange(ncam), N),
+            level=frame.level.reshape(-1).astype(np.int32),
+            angle=frame.angle.reshape(-1),
+            desc=frame.desc.reshape(ncam * N, 8),
+            kp_valid=frame.valid.reshape(-1),
+            mp_idx=np.full(ncam * N, -1, np.int64),
+            word=frame.words.reshape(-1), node=frame.nodes.reshape(-1))
+        self.map.add_keyframe(kf)
+        return kf
+
+    def _create_keyframe(self, frame: HostFrame) -> KeyFrame:
+        kf = self._make_keyframe(frame, frame.T_cw)
+        ncam, N = frame.valid.shape
+        for c in range(ncam):
+            for row in np.nonzero(frame.mp_ids[c] >= 0)[0]:
+                mid = int(frame.mp_ids[c][row])
+                mp = self.map.points.get(mid)
+                if mp is None or mp.is_bad:
+                    continue
+                g = c * N + int(row)
+                # the obs-membership guard matters when one point matched
+                # rows in TWO cameras of this frame: a second
+                # add_observation would overwrite mp.obs[kid] and leave
+                # the first row's mp_idx dangling forever
+                if kf.mp_idx[g] < 0 and kf.kid not in mp.obs:
+                    self.map.add_observation(mp, kf, g, c)
+        self.map.update_connections(kf)
+        self.ref_kid = kf.kid
+        self.last_kf_frame_id = frame.frame_id
+        self.events.append(f"KF@{frame.frame_id} kid={kf.kid}")
+        if self.local_mapper is not None:
+            self.local_mapper.on_new_keyframe(kf)
+        return kf
+
+    def _update_full_state(self, frame: HostFrame) -> None:
+        """FULL iff the map is scaled and enough keyframes carry secondary-
+        camera observations (Tracking.cc:324-333).  Nothing in this slice
+        scales the map, so only the not-scaled return is ported."""
+        if not self.map.map_scaled:
+            return
+        raise _waits("dual-bootstrap",
+                     "Tracker._update_full_state on a metric map (the FULL "
+                     "state and its metric global BA)")
+
+    # ------------------------------------------------------------------
+    # relocalization (Tracking.cc:1035-1261)
+    # ------------------------------------------------------------------
+    def _relocalize(self, frame: HostFrame) -> bool:
+        """The no-vocabulary fallback: brute-force against the reference
+        KF's region from the last known pose (keeps the no-vocabulary
+        configuration recoverable)."""
+        if self.last is None or self.last.T_cw is None:
+            return False
+        mids = self._region_points(self.ref_kid)
+        res = self._match_stage(frame, self.last.T_cw, mids, radius=50.0,
+                                max_hamming=float(self.cfg.matcher.th_high))
+        if res is None or int(res.n_inliers) < 30:
+            return False
+        frame.T_cw = np.asarray(res.T_cw)
+        frame.mp_ids = self._slots_to_mids(res)
+        self.velocity = None
+        return True
+
+    def _local_map_points_from_all(self) -> np.ndarray:
+        mids = np.asarray(sorted(self.map.points.keys()), np.int64)
+        return mids
+
+    def _region_points(self, seed_kid: int) -> np.ndarray:
+        """Map points observed by `seed_kid`'s covisibility region, topped
+        up with the rest of the map while capacity allows.  _match_stage
+        truncates to max_local_mp slots, so the region points must come
+        first."""
+        cap = self.cfg.capacity.max_local_mp
+        m = self.map
+        region: List[int] = []
+        seen: Set[int] = set()
+        kf = m.keyframes.get(seed_kid)
+        if kf is not None:
+            for kid in [seed_kid] + m.covisible_kfs(kf):
+                okf = m.keyframes.get(kid)
+                if okf is None:
+                    continue
+                for mid in okf.mp_idx[okf.mp_idx >= 0]:
+                    mid = int(mid)
+                    if mid not in seen:
+                        seen.add(mid)
+                        region.append(mid)
+                if len(region) >= cap:
+                    break
+        if len(region) < cap:
+            for mid in sorted(m.points.keys(), reverse=True):
+                if len(region) >= cap:
+                    break
+                if mid not in seen:
+                    seen.add(mid)
+                    region.append(mid)
+        return np.asarray(region[:cap], np.int64)
+
+    def force_lost(self) -> None:
+        """Manual fault injection for relocalization testing
+        (System::SetCompulsoryLost, System.cc:330-333)."""
+        self._force_lost = True
+
+    # ------------------------------------------------------------------
+    def composed_trajectory(self):
+        """[(fid, ts, T_cw)] with each frame pose re-composed against the
+        CURRENT (post-BA) pose of its reference keyframe.  If the reference
+        KF was culled, re-anchor through the parent chain using the
+        relative poses frozen at cull time (the reference's Trw =
+        Tcp-accumulating walk in System::SaveTrajectory)."""
+        out = []
+        for fid, ts, ref_kid, T_rel, T_abs in self.trajectory:
+            T_acc = T_rel
+            kid = ref_kid
+            for _ in range(64):                    # chain-length bound
+                if kid in self.map.keyframes:
+                    break
+                nxt = self.map.culled_redirect.get(kid)
+                if nxt is None:
+                    break
+                kid = nxt[0]
+                T_acc = T_acc @ nxt[1]
+            ref = self.map.keyframes.get(kid)
+            T = (T_acc @ ref.T_cw) if ref is not None else T_abs
+            out.append((fid, ts, T))
+        return out
+
+
+def lie_apply_z(T: np.ndarray, p: np.ndarray) -> float:
+    return float(T[2, :3] @ p + T[2, 3])

@@ -1,7 +1,8 @@
 """Carry the reference's configuration and state into the port.
 
-The tracking step has no weights: its state is the camera rig, the
-vocabulary tree and the map store.  These converters take the reference's
+The system has no weights: its state is the camera rig, the vocabulary
+tree, the map (keyframes, points, observations) and, per call, a packed BA
+problem.  These converters take the reference's
 NamedTuples with numpy leaves (``np.asarray`` of each jax leaf, done by the
 caller) and place them on a torch device, so tests feed both packages the
 same state.  `device=None` is the current CUDA device (utils/device.py).
@@ -83,3 +84,50 @@ def vocab_from_numpy(voc, device=None) -> Vocabulary:
         word_map=None if wm is None else torch.as_tensor(
             np.array(wm, np.int64), device=device),
         n_words_leaves=int(voc.n_words_leaves))
+
+
+def map_from_reference(ref_map):
+    """A Map of the JAX package (keyframes, points, observations,
+    covisibility, counters; all numpy and plain Python) -> the port's Map
+    with equal content.  Arrays and dicts are copied, so the two maps can
+    then be driven independently; observers (`on_erase_keyframe`) are not
+    carried over."""
+    import copy
+
+    from orbslam2_dualcam_tpu_torch.models.map import KeyFrame, Map, MapPoint
+
+    def rebuild(cls, obj):
+        return cls(**{f.name: copy.deepcopy(getattr(obj, f.name))
+                      for f in dataclasses.fields(cls)})
+
+    m = Map()
+    m.keyframes = {k: rebuild(KeyFrame, kf) for k, kf in ref_map.keyframes.items()}
+    m.points = {k: rebuild(MapPoint, mp) for k, mp in ref_map.points.items()}
+    for name in ("next_kid", "next_mid", "origin_kid", "big_change_idx",
+                 "map_scaled", "first_scale_kid", "geometry_epoch"):
+        setattr(m, name, getattr(ref_map, name))
+    m.culled_redirect = copy.deepcopy(ref_map.culled_redirect)
+    return m
+
+
+def ba_problem_from_numpy(prob, device=None):
+    """Reference BAProblem whose leaves are numpy arrays -> the port's, on
+    `device` (indices as int64)."""
+    from orbslam2_dualcam_tpu_torch.optim.ba import BAProblem
+    from orbslam2_dualcam_tpu_torch.optim.factors import Edges
+
+    device = resolve_device(device)
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.array(a, dtype), device=device)
+
+    e = prob.edges
+    edges = Edges(kf=dev(e.kf, np.int64), mp=dev(e.mp, np.int64),
+                  cam=dev(e.cam, np.int64), uv=dev(e.uv, np.float32),
+                  inv_sigma2=dev(e.inv_sigma2, np.float32),
+                  valid=dev(e.valid, bool))
+    return BAProblem(poses=dev(prob.poses, np.float32),
+                     points=dev(prob.points, np.float32), edges=edges,
+                     pose_valid=dev(prob.pose_valid, bool),
+                     pose_fixed=dev(prob.pose_fixed, bool),
+                     point_valid=dev(prob.point_valid, bool))

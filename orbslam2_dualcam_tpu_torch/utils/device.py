@@ -24,3 +24,30 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and device.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def upload(a, device) -> torch.Tensor:
+    """numpy array -> tensor on `device`; uint32 descriptor words keep
+    their bits as int32 (torch has no arithmetic on uint32)."""
+    import numpy as np
+
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.as_tensor(a).to(device, non_blocking=True)
+
+
+def to_host(tensors) -> list:
+    """Tensors -> numpy arrays with ONE wait for the card: every leaf is
+    copied into pinned host memory without blocking, then the stream is
+    synchronized once (a `.cpu()` per leaf would wait once per leaf).  CPU
+    tensors are returned as views."""
+    tensors = [t.detach() for t in tensors]
+    if not tensors or tensors[0].device.type != "cuda":
+        return [t.numpy() for t in tensors]
+    bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for b, t in zip(bufs, tensors):
+        b.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return [b.numpy() for b in bufs]

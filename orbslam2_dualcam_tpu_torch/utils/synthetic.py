@@ -2,7 +2,7 @@
 
 Copy of the parts of orbslam2_dualcam_tpu/utils/synthetic.py the tracking
 smoke run needs (`make_box_world`, `render`, `render_rig`,
-`orbit_trajectory`), without jax and without OpenCV: a textured box room
+`orbit_trajectory`, `out_and_back_trajectory`), without jax and without OpenCV: a textured box room
 rendered by a small raycaster with bilinear texture sampling.  The texture
 recipe is the reference's (multi-octave smooth noise plus sparse
 high-contrast rectangles, ellipses and lines) redrawn in numpy, so the
@@ -276,4 +276,39 @@ def orbit_trajectory(n_frames: int, radius: float = 2.0,
         T_wc[:3, 3] = [radius * np.sin(a), wobble * np.sin(3 * a),
                        -radius * np.cos(a)]
         poses.append(np.linalg.inv(T_wc))
+    return poses
+
+
+def out_and_back_trajectory(n_out: int = 30, n_turn: int = 30,
+                            n_back: int = 30, x0: float = -3.0,
+                            x1: float = 3.0, turn_radius: float = 1.0,
+                            n_turn2: int = 0,
+                            n_out2: int = 0) -> list[np.ndarray]:
+    """Crab-walk along x facing the +z wall, U-turn on an arc (rotation
+    with baseline: an in-place rotation cannot be triangulated by a
+    monocular front end), crab-walk back; with `n_turn2`/`n_out2` a second
+    U-turn at the far end and a second leg out.  Returns 4x4 world->capture
+    transforms."""
+    poses = []
+
+    def pose(x, z, yaw):
+        T_wc = np.eye(4)
+        T_wc[:3, :3] = so3_exp(np.array([0.0, yaw, 0.0]))
+        T_wc[:3, 3] = [x, 0.0, z]
+        return np.linalg.inv(T_wc)
+
+    for k in range(n_out):
+        poses.append(pose(x0 + (x1 - x0) * k / max(n_out - 1, 1), 0.0, 0.0))
+    r = turn_radius
+    for k in range(1, n_turn + 1):
+        th = np.pi * k / n_turn
+        poses.append(pose(x1 + r * np.sin(th), r * (1 - np.cos(th)), th))
+    for k in range(1, n_back + 1):
+        poses.append(pose(x1 + (x0 - x1) * k / n_back, 2 * r, np.pi))
+    for k in range(1, n_turn2 + 1):
+        th = np.pi * k / n_turn2
+        poses.append(pose(x0 - r * np.sin(th), 2 * r + r * (1 - np.cos(th)),
+                          np.pi + th))
+    for k in range(1, n_out2 + 1):
+        poses.append(pose(x0 + (x1 - x0) * k / n_out2, 4 * r, 0.0))
     return poses

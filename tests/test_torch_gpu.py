@@ -221,3 +221,123 @@ def test_default_device_is_the_card():
         for a, b in zip(outs, o):
             assert torch.equal(a[k], b)
     assert torch.equal(carry[0], T) and torch.equal(carry[2], s)
+
+
+def _small_system_cfg():
+    import dataclasses
+
+    from orbslam2_dualcam_tpu_torch import CapacityConfig, MappingConfig
+    cfg = SystemConfig(
+        cameras=(CameraConfig(width=320, height=240, fx=260, fy=260, cx=160,
+                              cy=120),),
+        orb=OrbConfig(n_features=400, n_levels=4),
+        mapping=MappingConfig(cull_found_ratio=0.1),
+        capacity=CapacityConfig(max_local_mp=2048))
+    return dataclasses.replace(cfg, vocab=dataclasses.replace(cfg.vocab, seed=0))
+
+
+@pytest.mark.gpu
+def test_system_runs_on_the_card_by_default():
+    """System(cfg) with no device lands on the card, initializes, tracks,
+    inserts keyframes and bundle-adjusts a small rendered orbit there, with
+    one K1 launch per track call; a run on the host CPU of the same frames
+    initializes at the same frame with a map-point count within 5% (the
+    RANSAC sets are drawn on the CPU, so both runs draw the same)."""
+    _card()
+    from orbslam2_dualcam_tpu_torch.pipeline.system import System
+    from orbslam2_dualcam_tpu_torch.utils import metrics
+    cfg = _small_system_cfg()
+    world = synthetic.make_box_world(np.random.default_rng(42), half=6.0)
+    poses = synthetic.orbit_trajectory(45, radius=1.5, total_angle=0.8 * np.pi)[:25]
+    runs = {}
+    for device in (None, "cpu"):
+        sys_ = System(cfg, voc=None, enable_loop_closing=False, device=device)
+        assert sys_.rig.K.device.type == ("cuda" if device is None else "cpu")
+        K, T_sc = sys_.rig.K.cpu().numpy(), sys_.rig.T_sc.cpu().numpy()
+        states = []
+        for k, T in enumerate(poses[:25 if device is None else 6]):
+            img = synthetic.render_rig(world, K, T_sc, T, H=240, W=320)
+            n0 = k1.fast_nms.launches
+            states.append(sys_.track(img, k / 30.0))
+            if device is None:
+                assert k1.fast_nms.launches == n0 + 1
+        runs[device] = (sys_, states)
+    card, states = runs[None]
+    assert states[-1] == "OK" and "OK" in states[:12] and states.count("LOST") <= 3
+    assert card.map.n_keyframes >= 4 and card.map.n_points > 150
+    assert card.mapper.n_triangulated > 50 and card.mapper.ba_log
+    assert card.tracker.n_fused_frames >= 1
+    assert card.tracker._store.arrays[0].is_cuda
+    traj = card.tracker.composed_trajectory()
+    est = metrics.trajectory_positions(traj)
+    gt = np.asarray([-poses[f][:3, :3].T @ poses[f][:3, 3] for f, _, _ in traj])
+    assert metrics.ate_rmse(est, gt) < 0.30
+    init = [next(e for e in runs[d][0].tracker.events if e.startswith("INIT@"))
+            for d in (None, "cpu")]
+    assert init[0].split()[0] == init[1].split()[0], init
+    n = [int(e.split("pts=")[1]) for e in init]
+    assert abs(n[0] - n[1]) <= 0.05 * n[1], init
+
+
+@pytest.mark.gpu
+def test_solve_ba_chunk_never_synchronizes_and_matches_cpu():
+    """One solve_ba chunk on the card under sync debug mode "error", and
+    against the same chunk on the host CPU: cost within 1e-3 relative,
+    poses within 1e-4 (the card's sums are float atomics)."""
+    _card()
+    from orbslam2_dualcam_tpu_torch.optim import ba
+    from orbslam2_dualcam_tpu_torch.optim.factors import Edges
+    rng = np.random.default_rng(0)
+    cfg = _small_system_cfg()
+    n_kf, n_pt, K_PAD, M_PAD, E_PAD = 8, 120, 8, 256, 1024
+    Kc = np.array([[260.0, 0, 160], [0, 260.0, 120], [0, 0, 1]])
+    X = np.stack([rng.uniform(-3, 3, n_pt), rng.uniform(-2, 2, n_pt),
+                  rng.uniform(4, 9, n_pt)], 1)
+    poses = np.tile(np.eye(4, dtype=np.float32), (K_PAD, 1, 1))
+    ekf, emp, euv = [], [], []
+    for k in range(n_kf):
+        T = np.eye(4)
+        T[:3, 3] = [-0.25 * k, 0, 0]
+        x = X + T[:3, 3]
+        uv = x[:, :2] / x[:, 2:] * 260.0 + [160, 120]
+        vis = np.nonzero((uv[:, 0] > 0) & (uv[:, 0] < 320) & (uv[:, 1] > 0) &
+                         (uv[:, 1] < 240))[0]
+        ekf += [k] * len(vis)
+        emp += vis.tolist()
+        euv += (uv[vis] + rng.normal(0, 0.5, (len(vis), 2))).tolist()
+        if k >= 2:
+            T[:3, 3] += rng.normal(0, 0.01, 3)
+        poses[k] = T
+    E = len(ekf)
+    assert 200 < E <= E_PAD
+    pad = E_PAD - E
+    points = np.zeros((M_PAD, 3), np.float32)
+    points[:n_pt] = X + rng.normal(0, 0.05, X.shape)
+
+    def build(device):
+        dev = lambda a: torch.as_tensor(a, device=device)
+        edges = Edges(kf=dev(np.asarray(ekf + [0] * pad)), mp=dev(np.asarray(emp + [0] * pad)),
+                      cam=dev(np.zeros(E_PAD, np.int64)),
+                      uv=dev(np.asarray(euv + [[0.0, 0.0]] * pad, np.float32)),
+                      inv_sigma2=dev(np.asarray([1.0] * E + [0.0] * pad, np.float32)),
+                      valid=dev(np.arange(E_PAD) < E))
+        prob = ba.BAProblem(dev(poses), dev(points), edges,
+                            dev(np.arange(K_PAD) < n_kf), dev(np.arange(K_PAD) < 2),
+                            dev(np.arange(M_PAD) < n_pt))
+        rig = make_rig(cfg, device)
+        return prob, (rig.T_sc, rig.adj_sc, rig.K)
+
+    prob, args = build("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ba.solve_ba(prob, *args, iters=cfg.ba.abort_chunk)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cprob, cargs = build("cpu")
+    want = ba.solve_ba(cprob, *cargs, iters=cfg.ba.abort_chunk)
+    c0 = float(ba.solve_ba(cprob, *cargs, iters=0).cost)
+    assert float(want.cost) < 0.5 * c0
+    np.testing.assert_allclose(float(got.cost), float(want.cost), rtol=1e-3)
+    assert (got.poses.cpu() - want.poses).abs().max().item() < 1e-4
+    assert torch.equal(got.poses[0].cpu(), cprob.poses[0])

@@ -24,8 +24,17 @@ import orbslam2_dualcam_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
-assert len(names) >= 18, names
+for n in %r:
+    assert pkg.__name__ + "." + n in names, n
+assert len(names) >= 32, names
 """
+
+# the modules of the mono SLAM slice must be among those imported
+_SLAM_MODULES = ("models.map", "ops.epipolar", "ops.ransac", "optim.ba",
+                 "optim.factors", "pipeline.ba_pack", "pipeline.local_mapping",
+                 "pipeline.tracking", "pipeline.system", "utils.metrics",
+                 "utils.profiling")
+_IMPORT_PACKAGE = _IMPORT_PACKAGE % (_SLAM_MODULES,)
 
 _CHECK = """
 import sys
@@ -67,7 +76,9 @@ def test_no_source_imports_jax_or_the_jax_package():
     """No import statement in the port or in chip_smoke.py, at module level
     or inside a function, names jax or the JAX package."""
     files = _sources()
-    assert len(files) >= 20
+    assert len(files) >= 34
+    assert {"tracking.py", "system.py", "local_mapping.py", "ba.py", "ransac.py",
+            "epipolar.py", "ba_pack.py", "map.py"} <= {p.name for p in files}
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -81,3 +92,33 @@ def test_source_scan_sees_function_level_imports(tmp_path):
                  "    import jax.numpy as jnp\n")
     assert _imported_modules(f) == ["orbslam2_dualcam_tpu.ops.orb_pattern",
                                     "jax.numpy"]
+
+
+def test_system_entry_point_runs_without_jax():
+    """The system's entry point, driven for three frames on the CPU in a
+    fresh interpreter, pulls in neither jax nor the JAX package (a lazy
+    import inside a method would show here and in the scan, not at import
+    time)."""
+    code = """
+import numpy as np, torch
+torch.set_num_threads(1)
+from orbslam2_dualcam_tpu_torch import CameraConfig, OrbConfig, SystemConfig
+from orbslam2_dualcam_tpu_torch.pipeline.system import System
+from orbslam2_dualcam_tpu_torch.utils import synthetic
+cfg = SystemConfig(cameras=(CameraConfig(width=320, height=240, fx=260, fy=260,
+                                         cx=160, cy=120),),
+                   orb=OrbConfig(n_features=400, n_levels=4))
+s = System(cfg, voc=None, enable_loop_closing=False, device="cpu")
+world = synthetic.make_box_world(np.random.default_rng(42), half=6.0, tex_size=256)
+poses = synthetic.orbit_trajectory(45, radius=1.5, total_angle=0.8 * np.pi)
+K, T_sc = s.rig.K.numpy(), s.rig.T_sc.numpy()
+states = [s.track(synthetic.render_rig(world, K, T_sc, T, H=240, W=320), k / 30.0)
+          for k, T in enumerate(poses[:5])]
+assert states[-1] == "OK", (states, s.tracker.events)
+assert s.map.n_keyframes >= 2 and s.mapper.timer.samples["triangulate"]
+"""
+    proc = subprocess.run([sys.executable, "-c", code + _CHECK], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT),
+                                   OMP_NUM_THREADS="1"),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -1,0 +1,179 @@
+"""The port's monocular SLAM system on the CPU, alone, at the size of
+tests/test_mono_slam.py::small_cfg (one 320x240 camera, 400 features, 4
+levels) and on that file's sequences, held to that file's gates:
+initialization, tracking, keyframes, local mapping, local BA, the savers,
+`async_mapping=True`, and the branches that are not ported yet.  The
+abrupt turn, the host-stepped path, `reset()` and the localization mode are
+in tests/test_torch_system_modes.py.
+
+The images are the reference's renderer's (the fixture's own); nothing else
+of the JAX package runs here.  The RANSAC seed is cfg.vocab.seed = 0, not
+the fixture's 42: the port draws its minimal sets from a torch.Generator,
+whose stream is not JAX's, and the run is sensitive to the draw (see
+ROADMAP.md, Queue 3)."""
+
+import dataclasses
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from orbslam2_dualcam_tpu.utils import config as ref_config
+from orbslam2_dualcam_tpu.utils import synthetic as ref_synthetic
+from orbslam2_dualcam_tpu_torch.models.map import Map
+from orbslam2_dualcam_tpu_torch.ops.camera import make_rig
+from orbslam2_dualcam_tpu_torch.pipeline.system import System
+from orbslam2_dualcam_tpu_torch.pipeline.tracking import Tracker
+from orbslam2_dualcam_tpu_torch.utils import metrics
+from orbslam2_dualcam_tpu_torch.utils.convert import config_from_reference
+
+from torch_parity import scripted_cfg
+
+
+def small_cfg(seed: int = 0):
+    cfg = config_from_reference(scripted_cfg(ref_config))
+    return dataclasses.replace(cfg, vocab=dataclasses.replace(cfg.vocab, seed=seed))
+
+
+def _drive(sys_, world, poses, wait_for_mapper=False):
+    K, T_sc = sys_.rig.K.numpy(), sys_.rig.T_sc.numpy()
+    states = []
+    for k, T_cw in enumerate(poses):
+        imgs = ref_synthetic.render_rig(world, K, T_sc, T_cw, H=240, W=320)
+        states.append(sys_.track(imgs, k / 30.0))
+        if wait_for_mapper:
+            # a camera's pace: the next frame comes when the mapping thread
+            # has taken the queued keyframes
+            t0 = time.monotonic()
+            while not sys_._kf_queue.empty() and time.monotonic() - t0 < 10:
+                time.sleep(0.005)
+    return states
+
+
+def _orbit(async_mapping=False):
+    world = ref_synthetic.make_box_world(np.random.default_rng(42),
+                                         n_points=2500, half=6.0)
+    sys_ = System(small_cfg(), voc=None, enable_loop_closing=False,
+                  async_mapping=async_mapping, device="cpu")
+    poses = ref_synthetic.orbit_trajectory(45, radius=1.5,
+                                           total_angle=0.8 * np.pi)
+    states = _drive(sys_, world, poses, wait_for_mapper=async_mapping)
+    sys_.shutdown()
+    return sys_, poses, states
+
+
+@pytest.fixture(scope="module")
+def mono_run():
+    return _orbit()
+
+
+def _check_map_gates(sys_, poses, states):
+    """The gates of tests/test_mono_slam.py."""
+    ev = sys_.tracker.events
+    assert states[-1] == "OK", (states, ev)
+    assert "OK" in states[:12], ev
+    assert sum(1 for s in states if s == "LOST") <= 3, (states, ev)
+    assert sys_.map.n_keyframes >= 4, ev
+    assert sys_.map.n_points > 150
+    assert sys_.mapper.n_triangulated > 50
+    traj = sys_.tracker.composed_trajectory()
+    assert len(traj) > 30
+    est = metrics.trajectory_positions(traj)
+    gt = np.asarray([-poses[f][:3, :3].T @ poses[f][:3, 3]
+                     for f in [t[0] for t in traj]])
+    ate = metrics.ate_rmse(est, gt, with_scale=True)
+    assert ate < 0.30, f"ATE {ate:.4f} m; events={ev}"
+
+
+def test_orbit_meets_the_mono_slam_gates(mono_run):
+    sys_, poses, states = mono_run
+    _check_map_gates(sys_, poses, states)
+    tr = sys_.tracker
+    assert tr.n_fused_frames >= 1
+    assert tr.n_fused_frames + tr.n_stepped_frames == \
+        sum(1 for s in states[states.index("OK") + 1:] if s == "OK")
+    # at least one local BA ran, on a window of several keyframes
+    assert sys_.mapper.ba_log and max(b[1] for b in sys_.mapper.ba_log) >= 4
+    assert all(np.isfinite(b[4]) for b in sys_.mapper.ba_log)
+    assert len(tr.two_view_ms) >= 1
+    assert {"fused", "extract", "initialize", "track", "store_refresh"} <= \
+        set(tr.timer.samples)
+    assert {"triangulate", "fuse", "local_ba"} <= set(sys_.mapper.timer.samples)
+
+
+def test_savers(mono_run, tmp_path):
+    sys_, _, _ = mono_run
+    fp, kp, mp = (tmp_path / n for n in ("frames.txt", "kfs.txt", "map.txt"))
+    sys_.save_frame_trajectory(str(fp))
+    sys_.save_keyframe_trajectory(str(kp))
+    sys_.save_map_points(str(mp))
+    lines = fp.read_text().strip().splitlines()
+    assert len(lines) == len(sys_.tracker.trajectory)
+    assert len(lines[0].split()) == 8      # x y z qx qy qz qw id
+    q = np.asarray(lines[5].split()[3:7], float)
+    assert abs(np.linalg.norm(q) - 1.0) < 1e-4
+    klines = kp.read_text().strip().splitlines()
+    assert len(klines) == sys_.map.n_keyframes
+    assert len(klines[0].split()) == 8
+    mlines = mp.read_text().strip().splitlines()
+    assert len(mlines) == sys_.map.n_points and len(mlines[0].split()) == 4
+
+
+def test_async_mapping_meets_the_map_gates():
+    before = threading.active_count()
+    sys_, poses, states = _orbit(async_mapping=True)
+    assert not sys_._mapper_thread.is_alive()
+    assert threading.active_count() == before
+    assert sys_._kf_queue.empty()
+    _check_map_gates(sys_, poses, states)
+    assert sys_.mapper.ba_log
+
+
+@pytest.mark.parametrize("what,kwargs,names", [
+    ("vocabulary", dict(voc=object(), enable_loop_closing=False), "relocalization slice"),
+    ("loop closing", dict(voc=object(), enable_loop_closing=True), "loop-closing slice"),
+    ("deferred", dict(deferred_tracking=True), "deferred-tracking slice"),
+    ("viewer", dict(viewer=True), "surface"),
+    ("mesh", dict(mesh=object()), "distributed-BA slice"),
+])
+def test_system_stubs_raise_and_name_their_slice(what, kwargs, names):
+    kw = dict(voc=None, enable_loop_closing=False, device="cpu")
+    kw.update(kwargs)
+    with pytest.raises(NotImplementedError, match=names):
+        System(small_cfg(), **kw)
+
+
+@pytest.mark.parametrize("what,kwargs,names", [
+    ("vocabulary", dict(voc=object()), "relocalization slice"),
+    ("keyframe database", dict(kfdb=object()), "relocalization slice"),
+    ("deferred", dict(deferred=True), "deferred-tracking slice"),
+    ("mesh", dict(mesh=object()), "distributed-BA slice"),
+])
+def test_tracker_stubs_raise_and_name_their_slice(what, kwargs, names):
+    cfg = small_cfg()
+    with pytest.raises(NotImplementedError, match=names):
+        Tracker(cfg, make_rig(cfg, device="cpu"), **kwargs)
+
+
+def test_metric_map_state_is_a_stub():
+    cfg = small_cfg()
+    m = Map()
+    tr = Tracker(cfg, make_rig(cfg, device="cpu"), slam_map=m)
+    assert tr._update_full_state(None) is None      # not scaled: returns
+    assert tr.flush() == "NOT_INITIALIZED"
+    m.map_scaled = True
+    with pytest.raises(NotImplementedError, match="dual-bootstrap slice"):
+        tr._update_full_state(None)
+
+
+def test_default_device_is_the_card():
+    """device=None means the current CUDA device: where there is none, the
+    system raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        sys_ = System(small_cfg(), voc=None, enable_loop_closing=False)
+        assert sys_.rig.K.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            System(small_cfg(), voc=None, enable_loop_closing=False)
