@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile    (kernel launches and the card's busy
-                                        time of System.track and of one local
-                                        BA under torch.profiler; no checks)
+                                        time of System.track, of one local BA
+                                        and of the dual bootstrap's solvers
+                                        under torch.profiler; no checks)
 
 Drives the port's main paths, the fused dual-camera tracking step
 (orbslam2_dualcam_tpu_torch.pipeline.frontend.make_track_fn), its batched
-form (make_track_batch_fn) and the monocular SLAM system
-(pipeline.system.System.track), at the reference's operating point:
+form (make_track_batch_fn), the monocular SLAM system
+(pipeline.system.System.track without a vocabulary) and the dual-camera
+system with a vocabulary (relocalization, the cross-camera bootstrap to a
+metric map), at the reference's operating point:
 2 x 640 x 480 frames, 1300 features per camera, 8 levels x 1.2, a 2048-slot
 map store and, for the step, a random vocabulary tree of ORBvoc's shape
 (k=10, depth 6).  Phases, each raising on failure:
@@ -36,11 +39,11 @@ map store and, for the step, a random vocabulary tree of ORBvoc's shape
      eight one-level launches, level 0 alone) against its plain version and
      its bound;
   7. the system: System(dual_default(), voc=None, enable_loop_closing=False)
-     on a rendered 45-frame dual orbit (radius 1.5 m, 3.2 deg and 8.4 cm per
+     on a rendered 25-frame dual orbit (radius 1.5 m, 3.2 deg and 8.4 cm per
      frame, looking along the tangent: the sideways motion gives the
      two-view initialization its parallax within two or three frames),
      synchronous, then with async_mapping=True (frames paced at the
-     synchronous run's median rate), then 20 frames with
+     synchronous run's median rate), then 10 frames with
      cfg.tracker.fused_tracking=False (every frame through the host-stepped
      cascade).  Held to the gates of the reference's mono SLAM test (OK
      within 15 frames and at the end, <= 3 LOST, >= 4 keyframes, > 150 map
@@ -48,7 +51,28 @@ map store and, for the step, a random vocabulary tree of ORBvoc's shape
      K1 launch per track call, a local BA that lowered its cost, and one
      solve_ba chunk with host synchronization forbidden; prints the
      frames/s of System.track, the stage timers, ms per local BA by its
-     (K, M, E) bucket and ms per two_view_init.
+     (K, M, E) bucket and ms per two_view_init;
+  8. the dual bootstrap: System(cfg, voc, enable_loop_closing=False) with
+     dual_default()'s intrinsics, ORB, matcher, mapping and capacity
+     settings, camera 1 facing backwards 0.50 m behind camera 0, cross-camera
+     attempts every 4 frames and 3 relocalizations before the second map (the
+     82-frame trajectory is too short for the defaults of 30 / 50 / 5), and
+     a 10-ary vocabulary of cfg.vocab.depth levels trained here on the
+     descriptors the port extracts on the card from 10 rendered orbit
+     frames.  An out-and-back walk with a U-turn (26 + 30 + 26 frames) in the
+     box room, synchronous, then with async_mapping=True paced at the
+     synchronous median; after the synchronous walk a forced loss
+     (set_compulsory_lost) with the rig standing where the walk ended (the
+     frames it takes to recover there, up to 5, are reported), then one with
+     the rig put back on the way out, and the frames it takes to
+     relocalize by vocabulary there.  Gates: last state OK or
+     FULL, <= 5 LOST, XRELOC@, SCALED@ and FULL@ in the event trail, a metric
+     map with its scale anchor, > 20 map points seen by camera 1,
+     Sim3-aligned keyframe ATE under 10% of the trajectory's span, Umeyama
+     scale in (0.2, 4.0), relocalized within 10 frames of the forced loss,
+     one K1 launch per track call.  Prints ms per track call by state
+     (MONO, bootstrap, FULL), the stage timers, and the time of one
+     pnp_ransac, one scale solve, one pose graph and one metric global BA.
 
 The last line of standard output is a JSON object with "ok": true; it is
 printed only when every phase passed.  There is no CPU path: without a
@@ -68,13 +92,15 @@ import torch
 
 from orbslam2_dualcam_tpu_torch import _build, dual_default
 from orbslam2_dualcam_tpu_torch.ops import fast_nms as k1
+from orbslam2_dualcam_tpu_torch.ops import ransac
 from orbslam2_dualcam_tpu_torch.ops.camera import make_rig
 from orbslam2_dualcam_tpu_torch.ops.orb import _tables, build_pyramid, level_shapes
-from orbslam2_dualcam_tpu_torch.optim import ba, pose_opt
+from orbslam2_dualcam_tpu_torch.optim import ba, pose_graph, pose_opt, scale_opt
 from orbslam2_dualcam_tpu_torch.pipeline import frontend
 from orbslam2_dualcam_tpu_torch.pipeline.system import System
 from orbslam2_dualcam_tpu_torch.utils import metrics, synthetic
 from orbslam2_dualcam_tpu_torch.utils.convert import desc_to_numpy, desc_to_torch
+from orbslam2_dualcam_tpu_torch.vocab import bow
 from orbslam2_dualcam_tpu_torch.vocab.bow import Vocabulary
 
 H, W = 480, 640
@@ -108,9 +134,23 @@ MAX_CENTER_ERR_M = 0.03
 MIN_N_FINAL = 350
 # The system phase: frames of the orbit, frames of the host-stepped run,
 # and the ATE band of the reference's mono SLAM test (0.30 m on ~3.5 m).
-SYS_FRAMES = 45
-SYS_STEPPED_FRAMES = 20
+SYS_FRAMES = 25
+SYS_STEPPED_FRAMES = 10
 SYS_MAX_ATE_OF_PATH = 0.09
+# The dual phase: the out-and-back walk (frames out, in the U-turn, back),
+# the baseline, the frames allowed for the relocalization after the forced
+# loss, the integration gates, and the reported accuracy bands (those of the
+# reference's wide-baseline test at a quarter of this resolution).
+DUAL_WALK = (26, 30, 26)
+DUAL_BASELINE_M = 0.50
+DUAL_RELOC_FRAMES = 10
+DUAL_INPLACE_FRAMES = 5             # tries where the walk ended, reported
+DUAL_MAX_LOST = 5
+DUAL_MIN_CAM1_POINTS = 20
+DUAL_MAX_ATE_OF_SPAN = 0.10
+DUAL_SCALE_GATE = (0.2, 4.0)
+DUAL_SCALE_BAND = (0.75, 1.35)
+DUAL_SE3_ATE_BAND_OF_SPAN = 0.45
 
 
 def log(msg: str) -> None:
@@ -568,8 +608,9 @@ def system_frames(cfg, device):
     ground-truth poses and its path length."""
     rng = np.random.default_rng(42)
     world = synthetic.make_box_world(rng, half=6.0)
+    # 3.2 deg and 8.4 cm per frame, however many frames
     poses = synthetic.orbit_trajectory(SYS_FRAMES, radius=1.5,
-                                       total_angle=0.8 * math.pi)
+                                       total_angle=0.8 * math.pi * SYS_FRAMES / 45)
     rig = make_rig(cfg)
     K, T_sc = rig.K.cpu().numpy(), rig.T_sc.cpu().numpy()
     frames = [np.clip(np.round(synthetic.render_rig(world, K, T_sc, T, H=H, W=W)),
@@ -577,6 +618,38 @@ def system_frames(cfg, device):
     centres = np.asarray([-T[:3, :3].T @ T[:3, 3] for T in poses])
     path = float(np.linalg.norm(np.diff(centres, axis=0), axis=1).sum())
     return frames, poses, centres, path
+
+
+def drive(sys_, frames, label: str, period_ms: float = 0.0, k0: int = 0):
+    """System.track over `frames` (numbered from k0) on the current CUDA
+    device, one K1 launch per call counted, each call timed between two
+    synchronizations of the card.  With `period_ms`, frame k is not handed
+    over before k * period_ms.  Returns the states, the ms per call and the
+    number of tracker events after each call."""
+    if sys_.rig.K.device.type != "cuda":
+        raise AssertionError(f"System() landed on {sys_.rig.K.device}")
+    states, ms, n_events = [], [], []
+    t_run = time.perf_counter()
+    for k, img in enumerate(frames):
+        time.sleep(max(0.0, t_run + 1e-3 * k * period_ms - time.perf_counter()))
+        n0 = k1.fast_nms.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states.append(sys_.track(img, (k0 + k) / 30.0))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        n_events.append(len(sys_.tracker.events))
+        if k1.fast_nms.launches != n0 + 1:
+            raise AssertionError(
+                f"{label}: frame {k0 + k} launched K1 "
+                f"{k1.fast_nms.launches - n0} times, expected exactly 1")
+    return states, ms, n_events
+
+
+def log_stage_timers(sys_, label: str, card: str) -> None:
+    for who, timer in (("tracker", sys_.tracker.timer), ("mapper", sys_.mapper.timer)):
+        log(f"  {label} ({card}) {who} stages (host wall clock):\n    " +
+            timer.report().replace("\n", "\n    "))
 
 
 def run_system(cfg, frames, centres, path, label: str, card: str,
@@ -591,22 +664,7 @@ def run_system(cfg, frames, centres, path, label: str, card: str,
     and a dict of what was measured."""
     sys_ = System(cfg, voc=None, enable_loop_closing=False,
                   async_mapping=async_mapping)
-    if sys_.rig.K.device.type != "cuda":
-        raise AssertionError(f"System() landed on {sys_.rig.K.device}")
-    states, ms = [], []
-    t_run = time.perf_counter()
-    for k, img in enumerate(frames):
-        time.sleep(max(0.0, t_run + 1e-3 * k * period_ms - time.perf_counter()))
-        n0 = k1.fast_nms.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        states.append(sys_.track(img, k / 30.0))
-        torch.cuda.synchronize()
-        ms.append(1e3 * (time.perf_counter() - t0))
-        if k1.fast_nms.launches != n0 + 1:
-            raise AssertionError(
-                f"{label}: frame {k} launched K1 "
-                f"{k1.fast_nms.launches - n0} times, expected exactly 1")
+    states, ms, _ = drive(sys_, frames, label, period_ms)
     sys_.shutdown()
     if async_mapping and sys_._mapper_thread.is_alive():
         raise AssertionError(f"{label}: the mapping thread did not stop")
@@ -635,9 +693,7 @@ def run_system(cfg, frames, centres, path, label: str, card: str,
             f"{max(tracked):.3f}); two_view_init ms "
             f"{[round(x, 3) for x in tr.two_view_ms]}")
     log(f"  {label}: events {tr.events}")
-    for who, timer in (("tracker", tr.timer), ("mapper", mp.timer)):
-        log(f"  {label} ({card}) {who} stages (host wall clock):\n    " +
-            timer.report().replace("\n", "\n    "))
+    log_stage_timers(sys_, label, card)
     by_bucket = {}
     for shape, t0, t1 in mp.ba_shapes:
         by_bucket.setdefault(shape, []).append(1e3 * (t1 - t0))
@@ -743,6 +799,319 @@ def phase_system(device, card: str) -> int:
     return launches
 
 
+def dual_config():
+    """dual_default() with camera 1 DUAL_BASELINE_M behind camera 0 (facing
+    backwards, as there) and the cross-camera schedule of the 82-frame
+    walk; ORB, matcher, mapping, vocabulary and capacity settings
+    unchanged."""
+    import dataclasses
+    cfg = dual_default()
+    cam1 = dataclasses.replace(cfg.cameras[1], t_sc=(0.0, 0.0, DUAL_BASELINE_M))
+    tracker = dataclasses.replace(cfg.tracker, reloc_gap_try=4, reloc_gap_fail=4,
+                                  num_frame_in_secondmap=3)
+    return dataclasses.replace(cfg, cameras=(cfg.cameras[0], cam1), tracker=tracker)
+
+
+def dual_scene(cfg, device):
+    """The box room (seed 3), the vocabulary trained on the card's own
+    descriptors of 10 orbit frames (both cameras), and the rendered walk.
+    Returns (voc, u8 frames, poses)."""
+    world = synthetic.make_box_world(np.random.default_rng(3), half=6.0)
+    rig = make_rig(cfg)
+    K, T_sc = rig.K.cpu().numpy(), rig.T_sc.cpu().numpy()
+
+    def render(T):
+        return np.clip(np.round(synthetic.render_rig(world, K, T_sc, T, H=H, W=W)),
+                       0, 255).astype(np.uint8)
+
+    extract = frontend.make_extract_fn(cfg, cfg.orb.n_track, None, rig)
+    docs = []
+    for T in synthetic.orbit_trajectory(10, radius=1.0):
+        f = extract(torch.as_tensor(render(T), device=device)).feats
+        desc, valid = desc_to_numpy(f.desc), f.valid.cpu().numpy()
+        docs += [desc[c][valid[c]] for c in range(desc.shape[0])]
+    t0 = time.perf_counter()
+    voc = bow.train_vocabulary(np.concatenate(docs), branching=cfg.vocab.branching,
+                               depth=cfg.vocab.depth, seed=9,
+                               direct_level=cfg.vocab.direct_index_level,
+                               weight_docs=docs)
+    log(f"  vocabulary: k={voc.branching}, depth {voc.depth}, {voc.n_words} words, "
+        f"trained on {sum(len(d) for d in docs)} descriptors of {len(docs)} images "
+        f"in {time.perf_counter() - t0:.1f} s (host k-majority; not gated)")
+    t0 = time.perf_counter()
+    poses = synthetic.out_and_back_trajectory(*DUAL_WALK)
+    frames = [render(T) for T in poses]
+    log(f"  rendered {len(frames)} frames 2x{H}x{W} in {time.perf_counter() - t0:.1f} s")
+    return voc, frames, poses
+
+
+def keyframe_accuracy(sys_, poses):
+    """(Umeyama scale, Sim3-aligned ATE, SE3-aligned ATE, span) of the
+    keyframe centres against the ground truth of their frames."""
+    kfs = [sys_.map.keyframes[k] for k in sorted(sys_.map.keyframes)]
+    est = np.asarray([kf.center() for kf in kfs])
+    gt = np.asarray([-poses[kf.frame_id][:3, :3].T @ poses[kf.frame_id][:3, 3]
+                     for kf in kfs])
+    _, _, scale = metrics.align_umeyama(est, gt, with_scale=True)
+    return (float(scale), float(metrics.ate_rmse(est, gt, with_scale=True)),
+            float(metrics.ate_rmse(est, gt, with_scale=False)),
+            float(np.linalg.norm(gt.max(0) - gt.min(0))))
+
+
+_BOOT_EVENTS = ("XRELOC@", "XANCHOR@", "XLS@", "SCALED@", "XATTACH@", "XGAP@",
+                "XWARP@", "XKF@", "ALPHA@", "FULL@", "MGBA@")
+
+
+def run_dual(cfg, voc, frames, poses, label: str, card: str,
+             async_mapping: bool = False, period_ms: float = 0.0,
+             force_lost: bool = False):
+    """Phase 8's run: the walk through System(cfg, voc).track under the
+    integration gates; with `force_lost`, a forced loss where the walk
+    ended (the frames it takes to recover there are reported), then a
+    forced loss with the rig put back on the way out, where it has to
+    relocalize by vocabulary within DUAL_RELOC_FRAMES frames.
+    Returns the system and what was measured."""
+    sys_ = System(cfg, voc=voc, enable_loop_closing=False,
+                  async_mapping=async_mapping)
+    tr = sys_.tracker
+    states, ms, n_events = drive(sys_, frames, label, period_ms)
+    # classes of calls: those in which the bootstrap machinery ran (an event
+    # of it was logged), the others by the map's state
+    scaled_at = next((k for k, n in enumerate(n_events)
+                      if any(e.startswith("SCALED@") for e in tr.events[:n])),
+                     len(frames))
+    first_ok = states.index("OK") if "OK" in states else len(states)
+    by_class = {"MONO": [], "bootstrap": [], "FULL": [], "other": []}
+    for k in range(len(frames)):
+        new = tr.events[n_events[k - 1] if k else 0:n_events[k]]
+        if any(e.startswith(_BOOT_EVENTS) for e in new):
+            by_class["bootstrap"].append(ms[k])
+        elif states[k] == "FULL":
+            by_class["FULL"].append(ms[k])
+        elif states[k] == "OK" and first_ok < k < scaled_at:
+            by_class["MONO"].append(ms[k])
+        else:
+            by_class["other"].append(ms[k])
+    reloc_frames, n_after = None, 0
+    if force_lost:
+        # first where the walk ended: the rig stands still (reported, not
+        # gated: there camera 0 faces what only camera 1 has mapped)
+        sys_.set_compulsory_lost()
+        st, ms_lost = [], []
+        while len(st) < DUAL_INPLACE_FRAMES and (not st or st[-1] not in ("OK", "FULL")):
+            s2, m2, _ = drive(sys_, frames[-1:], label + ", forced loss in place",
+                              0.0, k0=len(frames) + len(st))
+            st += s2
+            ms_lost += m2
+        n_after = len(st)
+        found = st[-1] in ("OK", "FULL")
+        log(f"  {label} ({card}): forced loss after frame {len(frames) - 1}, the rig "
+            f"standing where the walk ended (reported, not gated): "
+            f"{f'recovered at frame {len(st)} of the loss' if found else f'not recovered in {len(st)} frames'}"
+            f"; states {st}, ms/call {[round(x, 3) for x in ms_lost]}, events "
+            f"{[e for e in tr.events[n_events[-1]:] if not e.startswith('KF@')]}")
+        n_ev = len(tr.events)
+        if found:
+            sys_.set_compulsory_lost()
+        # then a kidnapped rig (the gate): back on the way out, where camera
+        # 0 faces the wall it mapped first, so only the vocabulary can place it
+        k_out = DUAL_WALK[0] - 2
+        back = frames[k_out:k_out - DUAL_RELOC_FRAMES:-1]
+        st, ms_lost = [], []
+        while len(st) < len(back) and (not st or st[-1] not in ("OK", "FULL")):
+            s2, m2, _ = drive(sys_, back[len(st):len(st) + 1], label + ", forced loss",
+                              0.0, k0=len(frames) + n_after)
+            st += s2
+            ms_lost += m2
+            n_after += 1
+        reloc_frames = len(st) if st[-1] in ("OK", "FULL") else None
+        log(f"  {label} ({card}): the rig put back at frames {k_out}, {k_out - 1}, ... "
+            f"of the way out: states {st}, ms/call {[round(x, 3) for x in ms_lost]}, "
+            f"events {[e for e in tr.events[n_ev:] if not e.startswith('KF@')]}")
+    sys_.shutdown()
+    if async_mapping and sys_._mapper_thread.is_alive():
+        raise AssertionError(f"{label}: the mapping thread did not stop")
+    ev, m, mp = tr.events, sys_.map, sys_.mapper
+    scale, ate_sim3, ate_se3, span = keyframe_accuracy(sys_, poses)
+    n_lost = states.count("LOST")
+    n_cam1 = sum(1 for p in m.points.values() if any(c == 1 for c in p.obs_cam.values()))
+    first = {name: next((int(e.split("@")[1].split()[0]) for e in ev
+                         if e.startswith(name + "@")), None)
+             for name in ("INIT", "XRELOC", "SCALED", "FULL", "MGBA")}
+    log(f"  {label} ({card}): first INIT/XRELOC/SCALED/FULL/MGBA at frames "
+        f"{[first[n] for n in ('INIT', 'XRELOC', 'SCALED', 'FULL', 'MGBA')]}; "
+        f"{n_lost} LOST, last state {states[-1]}; {m.n_keyframes} keyframes, "
+        f"{m.n_points} map points, {n_cam1} seen by camera 1, "
+        f"{tr._count_cross_edges()} cross-camera edges, "
+        f"{mp.n_cross_harvested} harvested by SearchCrossCameras, "
+        f"{mp.n_triangulated} triangulated, {mp.n_fused} fused, {mp.n_culled_kf} "
+        f"keyframes culled; fused frames {tr.n_fused_frames}, host-stepped "
+        f"{tr.n_stepped_frames}")
+    lo, hi = DUAL_SCALE_BAND
+    log(f"  {label} ({card}): keyframe centres against ground truth: Umeyama scale "
+        f"{scale:.4f} (reported band {lo}-{hi}: {'inside' if lo < scale < hi else 'OUTSIDE'}), "
+        f"Sim3-aligned ATE {ate_sim3:.4f} m, SE3-aligned ATE {ate_se3:.4f} m on a span of "
+        f"{span:.3f} m ({ate_se3 / span:.4f}; reported band < "
+        f"{DUAL_SE3_ATE_BAND_OF_SPAN}: "
+        f"{'inside' if ate_se3 < DUAL_SE3_ATE_BAND_OF_SPAN * span else 'OUTSIDE'})")
+    pace = (f"frames handed over every {period_ms:.3f} ms, so these are latencies: "
+            if period_ms else "")
+    for name, v in by_class.items():
+        if v:
+            log(f"  {label} ({card}): {name} calls, n {len(v)}: {pace}ms/call median "
+                f"{np.median(v):.3f} (min {min(v):.3f}, max {max(v):.3f}), "
+                f"{1e3 * len(v) / sum(v):.3f} calls/s back to back")
+    for name in ("SCALED@", "FULL@"):
+        k = next((k for k in range(len(frames)) if any(
+            e.startswith(name) for e in
+            ev[n_events[k - 1] if k else 0:n_events[k]])), None)
+        if k is not None:
+            log(f"  {label} ({card}): the {name} call (frame {k}) took {ms[k]:.3f} ms")
+    log(f"  {label}: events {[e for e in ev if not e.startswith('KF@')]}")
+    log(f"  {label}: mapper events (last 12) {mp.events[-12:]}")
+    log_stage_timers(sys_, label, card)
+    problems = []
+    if states[-1] not in ("OK", "FULL") or n_lost > DUAL_MAX_LOST:
+        problems.append(f"last state {states[-1]}, {n_lost} LOST")
+    for name in ("XRELOC", "SCALED", "FULL"):
+        if first[name] is None:
+            problems.append(f"no {name}@ event")
+    if not m.map_scaled or m.first_scale_kid < 0:
+        problems.append(f"map_scaled {m.map_scaled}, first_scale_kid {m.first_scale_kid}")
+    if n_cam1 <= DUAL_MIN_CAM1_POINTS:
+        problems.append(f"{n_cam1} map points seen by camera 1")
+    if not ate_sim3 < DUAL_MAX_ATE_OF_SPAN * span:
+        problems.append(f"Sim3-aligned ATE {ate_sim3:.4f} m of a span of {span:.3f} m")
+    if not DUAL_SCALE_GATE[0] < scale < DUAL_SCALE_GATE[1]:
+        problems.append(f"Umeyama scale {scale:.4f}")
+    if force_lost and reloc_frames is None:
+        problems.append(f"not relocalized within {DUAL_RELOC_FRAMES} frames of the "
+                        f"forced loss")
+    if problems:
+        raise AssertionError(f"{label}: " + "; ".join(problems))
+    return sys_, {"states": states, "ms": ms, "by_class": by_class,
+                  "reloc_frames": reloc_frames, "calls_after_walk": n_after,
+                  "first": first}
+
+
+def dual_workloads(sys_):
+    """The four solver calls of the bootstrap on the finished map's own
+    data, as closures: one pnp_ransac (512 + 512 hypotheses) on the points
+    of the keyframe with the most of them, the scale cost curve (129 x E)
+    over the cross-camera edges, one 20-step pose graph over the essential
+    graph, and their sizes."""
+    m, rig, dev = sys_.map, sys_.rig, sys_.device
+    N = sys_.cfg.orb.n_track
+    kf = max(m.keyframes.values(), key=lambda k: int((k.mp_idx[:N] >= 0).sum()))
+    rows = np.nonzero(kf.mp_idx[:N] >= 0)[0]
+    X = torch.as_tensor(np.asarray([m.points[int(kf.mp_idx[r])].pos for r in rows],
+                                   np.float32), device=dev)
+    uv = torch.as_tensor(kf.uv[rows].astype(np.float32), device=dev)
+    valid = torch.ones(len(rows), dtype=torch.bool, device=dev)
+    gen = torch.Generator().manual_seed(0)
+
+    def pnp():
+        return ransac.pnp_ransac(gen, X, uv, valid, rig.K[0], n_hyp=512)
+
+    # the essential graph as optimize_essential_graph builds it
+    kids = sorted(m.keyframes)
+    slot = {kid: i for i, kid in enumerate(kids)}
+    pairs = set()
+    for kid in kids:
+        k = m.keyframes[kid]
+        for other in ([k.parent] if k.parent >= 0 else []) + list(k.loop_edges) + \
+                [n for n, w in k.covis.items() if w >= 100]:
+            if other in slot and other != kid:
+                pairs.add((min(kid, other), max(kid, other)))
+    pairs = sorted(pairs)
+    S0 = np.stack([m.keyframes[kid].T_cw for kid in kids]).astype(np.float32)
+    e_i = np.asarray([slot[a] for a, _ in pairs], np.int64)
+    e_j = np.asarray([slot[b] for _, b in pairs], np.int64)
+    rng = np.random.default_rng(0)
+    S_meas = np.stack([S0[i] @ np.linalg.inv(S0[j]) for i, j in zip(e_i, e_j)])
+    # strain the graph as a frontier warp does: 2 cm of noise on each edge
+    S_meas[:, :3, 3] += rng.normal(0, 0.02, (len(pairs), 3))
+    fixed = np.zeros(len(kids), bool)
+    fixed[0] = True
+    pg_args = [torch.as_tensor(x, device=dev) for x in
+               (S0, e_i, e_j, S_meas.astype(np.float32), np.ones(len(pairs), bool),
+                fixed)]
+
+    def graph():
+        return pose_graph.optimize_pose_graph(*pg_args, iters=20)
+
+    def scale():
+        return scale_opt.optimal_map_scale(
+            m, rig, sys_.tracker.scale_factors ** 2, alpha_lo=0.15, alpha_hi=8.0,
+            n_grid=129)
+
+    return {"pnp": pnp, "graph": graph, "scale": scale,
+            "sizes": (len(rows), len(kids), len(pairs))}
+
+
+def time_dual_solvers(sys_, card: str) -> None:
+    """ms of one pnp_ransac, one scale solve, one pose graph and one metric
+    global BA on the finished map of the synchronous run."""
+    w = dual_workloads(sys_)
+    n_pts, n_kf, n_edges = w["sizes"]
+    w["pnp"]()
+    w["graph"]()
+    torch.cuda.synchronize()
+    t_pnp = time_events(w["pnp"], 3)
+    T, _, cnt, ok = w["pnp"]()
+    log(f"  one pnp_ransac, 512 + 512 hypotheses over {n_pts} points (CUDA events; "
+        f"the valid mask is read back once, the sets are drawn on the host and "
+        f"uploaded) "
+        f"({card}): ms " + ", ".join(f"{x:.3f}" for x in t_pnp) +
+        f"; inliers {int(cnt)}, success {bool(ok)}")
+    if not bool(ok):
+        raise AssertionError("pnp_ransac failed on a keyframe's own map points")
+    t_graph = time_events(w["graph"], 2)
+    _, cost = w["graph"]()
+    log(f"  one optimize_pose_graph, 20 LM x 32 PCG steps over {n_kf} nodes and "
+        f"{n_edges} edges (CUDA events, no readback inside) ({card}): ms "
+        + ", ".join(f"{x:.3f}" for x in t_graph) + f"; cost {float(cost):.6f}")
+    if not math.isfinite(float(cost)):
+        raise AssertionError("the pose graph's cost is not finite")
+    t_scale = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = w["scale"]()
+        t_scale.append(1e3 * (time.perf_counter() - t0))
+    log(f"  one optimal_map_scale, 129 x {res[1] if res else 0} edges (host clock: "
+        f"host packing, one upload, one readback) ({card}): ms "
+        + ", ".join(f"{x:.3f}" for x in t_scale) + f"; alpha {res[0] if res else None}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sys_.tracker._metric_gba(iters=25)
+    torch.cuda.synchronize()
+    log(f"  one _metric_gba, 25 LM x 48 PCG steps over {n_kf} keyframes and "
+        f"{sys_.map.n_points} points (host clock: packing, solve, readback, "
+        f"unpacking) ({card}): ms {1e3 * (time.perf_counter() - t0):.3f}")
+
+
+def phase_dual(device, card: str) -> int:
+    """Phase 8.  Returns K1's launches over the synchronous walk."""
+    cfg = dual_config()
+    voc, frames, poses = dual_scene(cfg, device)
+    torch.cuda.synchronize()
+    k1.fast_nms.launches = 0
+    sync_sys, sync = run_dual(cfg, voc, frames, poses, "dual, synchronous", card,
+                              force_lost=True)
+    launches = k1.fast_nms.launches
+    n_calls = len(frames) + sync["calls_after_walk"]
+    if launches != n_calls:
+        raise AssertionError(f"K1 launched {launches} times over {n_calls} "
+                             f"System.track calls")
+    time_dual_solvers(sync_sys, card)
+    period = float(np.median(sync["ms"]))
+    log(f"  async run paced at the synchronous run's median, {period:.3f} ms/frame")
+    run_dual(cfg, voc, frames, poses, "dual, async_mapping", card,
+             async_mapping=True, period_ms=period)
+    return launches
+
+
 def profile_system(device, card: str, n_warm: int = 8, n_prof: int = 5) -> None:
     """`--profile`: the synchronous system under torch.profiler for n_prof
     tracked frames after n_warm, and one 15-step local BA on the last
@@ -795,6 +1164,31 @@ def profile_system(device, card: str, n_warm: int = 8, n_prof: int = 5) -> None:
         f"({card}): {launches} kernel launches, card busy {busy:.3f} ms of "
         f"{wall:.3f} ms under the profiler")
 
+    # the dual bootstrap's stages on the map of one synchronous walk
+    dcfg = dual_config()
+    voc, dframes, _ = dual_scene(dcfg, device)
+    dsys = System(dcfg, voc=voc, enable_loop_closing=False)
+    drive(dsys, dframes, "profile, dual walk")
+    dsys.shutdown()
+    w = dual_workloads(dsys)
+    stages = [("pnp_ransac (512 + 512 hypotheses)", w["pnp"]),
+              ("optimize_pose_graph (20 x 32)", w["graph"]),
+              ("optimal_map_scale (129 x E)", w["scale"]),
+              ("_metric_gba (25 x 48)", lambda: dsys.tracker._metric_gba(iters=25))]
+    for name, fn in stages:
+        if not name.startswith("_metric"):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        launches, busy = totals(prof)
+        log(f"  profiler, one {name}, sizes (points, keyframes, edges) = "
+            f"{w['sizes']} ({card}): {launches} kernel launches, card busy "
+            f"{busy:.3f} ms of {wall:.3f} ms under the profiler")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -811,14 +1205,14 @@ def main() -> int:
     # 1. card
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/7] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/8] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {name}, count {torch.cuda.device_count()}")
 
     # 2. build
     t0 = time.perf_counter()
     built = not _build.library_path().exists()
     _build.load_library()
-    log(f"[2/7] build: {'compiled' if built else 'cached'} "
+    log(f"[2/8] build: {'compiled' if built else 'cached'} "
         f"{_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
@@ -826,14 +1220,14 @@ def main() -> int:
 
     # 3. K1 against its plain version
     k1_err = phase_k1(device)
-    log(f"[3/7] K1 agrees with its plain version at all level shapes, one level "
+    log(f"[3/8] K1 agrees with its plain version at all level shapes, one level "
         f"per launch and the pyramid in one launch (max |err| {k1_err})")
 
     # 4. the one-frame path at full width
     cfg = dual_default()
     t0 = time.perf_counter()
     scene = Scene(cfg, device)
-    log(f"[4/7] scene: {N_FRAMES} frames 2x{H}x{W}, {scene.n_feats} features/camera, "
+    log(f"[4/8] scene: {N_FRAMES} frames 2x{H}x{W}, {scene.n_feats} features/camera, "
         f"{int(scene.store.valid.sum())}/{scene.cap} store slots seeded, vocabulary "
         f"k=10 depth 6 ({sum(c.numel() * 4 for c in scene.voc.centroids) / 1e6:.1f} MB) "
         f"in {time.perf_counter() - t0:.1f} s")
@@ -852,7 +1246,7 @@ def main() -> int:
     if batch_launches != DEPTH:
         raise AssertionError(f"K1 launched {batch_launches} times over a batch of "
                              f"{DEPTH} frames, expected 1 per frame")
-    log(f"[5/7] batched path: {DEPTH} frames equal the one-by-one run exactly; "
+    log(f"[5/8] batched path: {DEPTH} frames equal the one-by-one run exactly; "
         f"K1 launches {batch_launches} ({batch_launches / DEPTH:g} per frame)")
 
     # 6. timing
@@ -860,7 +1254,7 @@ def main() -> int:
     t_span, spans = run_chain_with_spans(scene, device)
     t_rand = time_random(scene, device)
     med = float(np.median(t_rend))
-    log(f"[6/7] step ms/frame ({card}): rendered chain median {med:.3f} "
+    log(f"[6/8] step ms/frame ({card}): rendered chain median {med:.3f} "
         f"(min {min(t_rend):.3f}, max {max(t_rend):.3f}); random frames "
         f"(widened retry) median {np.median(t_rand):.3f} "
         f"(max {max(t_rand):.3f})")
@@ -897,15 +1291,29 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sys_launches = phase_system(device, card)
-    log(f"[7/7] system: System.track initialized, tracked, mapped and bundle-"
+    log(f"[7/8] system: System.track initialized, tracked, mapped and bundle-"
         f"adjusted the orbit synchronously and with async_mapping; K1 launches "
         f"{sys_launches} over {SYS_FRAMES} track calls (1 per call); peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB; phase "
         f"{time.perf_counter() - t0:.0f} s, total "
         f"{time.perf_counter() - t_start:.0f} s")
 
-    # launches: the one-frame chain's, the batch's and the synchronous
-    # system run's, each counted from 0 just before its path ran; times: the pyramid launch, as both paths
+    # 8. the dual bootstrap at full width
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dual_launches = phase_dual(device, card)
+    log(f"[8/8] dual bootstrap: System(cfg, voc).track walked out, turned and came "
+        f"back, relocalized across cameras, scaled the map by the baseline and "
+        f"reached FULL, synchronously and with async_mapping, and relocalized by "
+        f"vocabulary after a forced loss; K1 launches {dual_launches} (1 per track "
+        f"call); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB; phase "
+        f"{time.perf_counter() - t0:.0f} s, total "
+        f"{time.perf_counter() - t_start:.0f} s")
+
+    # launches: the one-frame chain's, the batch's, the synchronous mono
+    # system run's and the synchronous dual walk's, each counted from 0
+    # just before its path ran; times: the pyramid launch, as both paths
     # call it, on the main path's own data
     print(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda",
@@ -913,6 +1321,7 @@ def main() -> int:
         "replaces": "orbslam2_dualcam_tpu/ops/pallas_kernels.py:115",
         "launches": launches, "launches_batched_path": batch_launches,
         "launches_system_path": sys_launches,
+        "launches_dual_path": dual_launches,
         "max_abs_err": k1_err,
         "ms": k["pyramid_device_ms"], "per_call_ms": k["pyramid_call_ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -1,18 +1,21 @@
-"""Batched RANSAC two-view initialization (homography / fundamental).
+"""Batched RANSAC solvers: two-view initialization (homography /
+fundamental) and PnP.
 
-Port of orbslam2_dualcam_tpu/ops/ransac.py lines 1-392: the reference's
+Port of orbslam2_dualcam_tpu/ops/ransac.py lines 1-575: the original's
 Initializer.cc (H and F estimated side by side, model chosen by the score
 ratio RH > 0.40, then ReconstructH / ReconstructF with cheirality tests)
-with a fixed budget of hypotheses solved and scored as one batch.  The PnP
-and Sim3 solvers of that file belong to the relocalization and loop-closing
-slices and are not here yet.
+and PnPsolver.cc (here 6-point DLT and plane-homography hypotheses, then
+Gauss-Newton on the consensus set), each with a fixed budget of hypotheses
+solved and scored as one batch.  The Sim3 solver of that file belongs to
+the loop-closing slice and is not here yet.
 
 Every hypothesis is a row of a leading batch axis (the reference's vmap):
 the minimal-set solvers take ``[..., k, 2]`` samples.  Sampling is split
 from solving: `two_view_samples` draws the minimal sets with a
 `torch.Generator` on the CPU (so a run on the card and a run on the CPU draw
 the same sets) and `two_view_solve` is a pure function of the sets, so a
-test can feed it sets drawn elsewhere.
+test can feed it sets drawn elsewhere; `pnp_samples` / `pnp_solve` split
+the same way.
 
 Small inverses are closed forms: `torch.linalg.inv` raises on a singular
 matrix, and degenerate samples make singular ones; the closed forms give
@@ -22,7 +25,7 @@ inf/nan there, which every later comparison reads as "not an inlier".
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -42,25 +45,8 @@ def _sample_indices(gen: torch.Generator, n_hyp: int, k: int, n: int,
                              generator=gen)
 
 
-def _inv3(A: torch.Tensor) -> torch.Tensor:
-    """Inverse of [..., 3, 3] by the adjugate; inf/nan where singular."""
-    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
-    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
-    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
-    c00, c01, c02 = e * i - f * h, c * h - b * i, b * f - c * e
-    c10, c11, c12 = f * g - d * i, a * i - c * g, c * d - a * f
-    c20, c21, c22 = d * h - e * g, b * g - a * h, a * e - b * d
-    det = a * c00 + b * c10 + c * c20
-    adj = torch.stack([torch.stack([c00, c01, c02], -1),
-                       torch.stack([c10, c11, c12], -1),
-                       torch.stack([c20, c21, c22], -1)], -2)
-    return adj / det[..., None, None]
-
-
-def _det3(A: torch.Tensor) -> torch.Tensor:
-    return (A[..., 0, 0] * (A[..., 1, 1] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 1])
-            - A[..., 0, 1] * (A[..., 1, 0] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 0])
-            + A[..., 0, 2] * (A[..., 1, 0] * A[..., 2, 1] - A[..., 1, 1] * A[..., 2, 0]))
+_inv3 = lie.inv3
+_det3 = lie.det3
 
 
 def _normalize_2d(uv: torch.Tensor, valid: torch.Tensor):
@@ -402,3 +388,209 @@ def _reconstruct_h(H, K, uv1, uv2, inl, sigma2, min_parallax_deg, min_tri):
         stats.append(_triangulate_and_check(R, t, K, uv1, uv2, inl, sigma2,
                                             min_parallax_deg))
     return _pick_motion(mats, stats, inl, min_parallax_deg, min_tri)
+
+
+# ---------------------------------------------------------------------------
+# PnP
+# ---------------------------------------------------------------------------
+
+def _se3_batch(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3], [..., 3] -> [..., 4, 4]."""
+    top = torch.cat([R, t[..., :, None]], -1)
+    bot = torch.zeros_like(top[..., :1, :])
+    bot[..., 0, 3] = 1.0
+    return torch.cat([top, bot], -2)
+
+
+def _pnp_dlt(X: torch.Tensor, uv_n: torch.Tensor,
+             w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """DLT absolute pose from world points X [..., n, 3] and normalized
+    image coords uv_n [..., n, 2]: the minimal 6-point solve, or with
+    weights w [..., n] the overdetermined refit over all rows (the
+    reference's _pnp_dlt and _pnp_dlt_weighted).  3D points
+    are Hartley-normalized before the solve: without it the f32 12-dim
+    null-space extraction is too ill-conditioned to beat even a loose
+    inlier gate.  The null vector's free sign is fixed by det(R) > 0."""
+    if w is None:
+        w = torch.ones_like(X[..., 0])
+    wsum = torch.clamp(w.sum(-1), min=1e-9)[..., None]
+    c3 = (X * w[..., None]).sum(-2) / wsum                         # [..., 3]
+    Xc = X - c3[..., None, :]
+    s3 = torch.clamp((torch.linalg.vector_norm(Xc, dim=-1) * w).sum(-1)
+                     / wsum[..., 0], min=1e-6)[..., None, None]
+    Xn = Xc / s3
+
+    x, y, z3 = Xn[..., 0], Xn[..., 1], Xn[..., 2]
+    u, v = uv_n[..., 0], uv_n[..., 1]
+    zr = torch.zeros_like(x)
+    o = torch.ones_like(x)
+    r1 = torch.stack([x, y, z3, o, zr, zr, zr, zr,
+                      -u * x, -u * y, -u * z3, -u], -1)
+    r2 = torch.stack([zr, zr, zr, zr, x, y, z3, o,
+                      -v * x, -v * y, -v * z3, -v], -1)
+    A = torch.cat([r1 * w[..., None], r2 * w[..., None]], -2)
+    _, _, Vt = torch.linalg.svd(A, full_matrices=False)
+    P = Vt[..., -1, :].reshape(*A.shape[:-2], 3, 4)
+    # denormalize 3D: X -> (X - c3)/s3
+    P3 = P[..., :, :3] / s3
+    p4 = P[..., :, 3] - (P3 @ c3[..., :, None])[..., 0]
+    # P = lambda [R|t]; force lambda > 0 (det(R_raw) = lambda^3)
+    sg = torch.sign(_det3(P3))
+    R_raw = P3 * sg[..., None, None]
+    p4 = p4 * sg[..., None]
+    U, S, Vt2 = torch.linalg.svd(R_raw)
+    d = torch.sign(_det3(U @ Vt2))
+    diag = torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1)
+    R = (U * diag[..., None, :]) @ Vt2
+    scale = (2.0 + d) / torch.clamp(S[..., 0] + S[..., 1] + d * S[..., 2],
+                                    min=1e-12)
+    return _se3_batch(R, p4 * scale[..., None])
+
+
+def _pnp_planar_hypotheses(idx: torch.Tensor, X: torch.Tensor,
+                           uv_n: torch.Tensor,
+                           valid: torch.Tensor) -> torch.Tensor:
+    """Pose hypotheses for (near-)planar point sets via plane-homography
+    decomposition, one per row of idx [n_hyp, 4].
+
+    The 6-point DLT is rank-degenerate when the sampled world points are
+    coplanar, the common case for wall-viewing relocalization.  Here: fit
+    the dominant plane (weighted PCA), express points in plane coordinates
+    (u, v), estimate the 2D->2D homography from the 4-point samples, and
+    decompose H = [R e1, R e2, R P0 + t] into a pose.  Returns
+    [n_hyp, 4, 4]."""
+    w = valid.to(X.dtype)
+    wsum = torch.clamp(w.sum(), min=1e-9)
+    c = (X * w[:, None]).sum(0) / wsum
+    Xc = (X - c) * w[:, None]
+    C = Xc.T @ Xc / wsum
+    _, evecs = torch.linalg.eigh(C)
+    e1 = evecs[:, 2]
+    e2 = evecs[:, 1]
+    pu = (X - c) @ e1
+    pv = (X - c) @ e2
+
+    plane_pts = torch.stack([pu[idx], pv[idx]], -1)        # [H, 4, 2]
+    Hn = _h_from_4pts(plane_pts, uv_n[idx])                # plane -> normalized
+    lam = 0.5 * (torch.linalg.vector_norm(Hn[..., :, 0], dim=-1) +
+                 torch.linalg.vector_norm(Hn[..., :, 1], dim=-1))
+    Hs = Hn / torch.where(lam > 1e-12, lam,
+                          torch.full_like(lam, 1e-12))[:, None, None]
+    # orthonormalize r1, r2 symmetrically
+    U, _, Vt = torch.linalg.svd(Hs[..., :, :2])            # [H,3,3], [H,2,2]
+    R12 = U[..., :, :2] @ Vt
+    r1o = R12[..., :, 0]
+    r2o = R12[..., :, 1]
+    B = torch.stack([e1, e2, torch.linalg.cross(e1, e2)], 1)   # world<-plane
+
+    def pose(r1o, r2o, h3):
+        R_pc = torch.stack([r1o, r2o, torch.linalg.cross(r1o, r2o)], -1)
+        R = R_pc @ B.T
+        return R, h3 - R @ c
+
+    R, t = pose(r1o, r2o, Hs[..., :, 2])
+    # flip if cheirality majority fails (homography sign ambiguity)
+    z = (torch.einsum('hij,nj->hni', R, X) + t[:, None, :])[..., 2]
+    n_front = torch.where(w > 0, (z > 0).to(X.dtype),
+                          torch.zeros_like(z)).sum(-1)
+    flip = n_front < 0.5 * wsum
+    Rf, tf = pose(-r1o, -r2o, -Hs[..., :, 2])
+    return torch.where(flip[:, None, None], _se3_batch(Rf, tf),
+                       _se3_batch(R, t))
+
+
+def pnp_samples(gen: torch.Generator, n_hyp: int, valid: torch.Tensor):
+    """Draw the minimal sets of `pnp_solve`: (idx6 [n_hyp, 6] DLT samples,
+    idx4 [n_hyp, 4] plane-homography samples) on valid's device, sampled
+    among the valid rows."""
+    w = valid.to(torch.float32)
+    N = valid.shape[0]
+    idx6 = _sample_indices(gen, n_hyp, 6, N, w)
+    idx4 = _sample_indices(gen, n_hyp, 4, N, w)
+    return idx6.to(valid.device), idx4.to(valid.device)
+
+
+def pnp_solve(idx6: torch.Tensor, idx4: torch.Tensor, X: torch.Tensor,
+              uv: torch.Tensor, valid: torch.Tensor, K: torch.Tensor,
+              th_px: float = 5.991 ** 0.5, refine_rounds: int = 2,
+              min_inliers: int = 12):
+    """Batched DLT-PnP RANSAC from given minimal sets (replaces
+    PnPsolver::iterate, PnPsolver.cc:201-294).  X [N,3] world, uv [N,2]
+    pixels (single camera).  The 6-point hypotheses of idx6 and the planar
+    ones of idx4 compete for the consensus set; the winner is then refined
+    on its inliers (`refine_rounds`x), replacing PnPsolver::Refine.
+    Returns (T_cw, inliers, n_inliers, success: n_inliers >= min_inliers);
+    nothing is read back."""
+    Kinv = epi._inv_K(K)
+    uv_n = (torch.cat([uv, torch.ones_like(uv[:, :1])], -1) @ Kinv.T)[:, :2]
+
+    def classify(T, th):
+        """T [..., 4, 4] -> inliers [..., N], count [...]."""
+        xc = X @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
+        zc = xc[..., 2]
+        z = torch.where(zc.abs() > 1e-9, zc, torch.full_like(zc, 1e-9))
+        u = K[0, 0] * xc[..., 0] / z + K[0, 2]
+        v = K[1, 1] * xc[..., 1] / z + K[1, 2]
+        err2 = (u - uv[:, 0]) ** 2 + (v - uv[:, 1]) ** 2
+        inl = valid & (zc > 0) & (err2 < th * th)
+        return inl, inl.sum(-1)
+
+    # LO-RANSAC schedule: minimal hypotheses are noise-amplified, so the
+    # consensus search runs at a loose 4x gate; the winner is then refined
+    # on its loose inliers and the gate annealed down to th_px.
+    th_search = 4.0 * th_px
+    Ts = torch.cat([_pnp_dlt(X[idx6], uv_n[idx6]),
+                    _pnp_planar_hypotheses(idx4, X, uv_n, valid)])
+    # a degenerate sample may give a non-finite pose: it scores 0 inliers
+    Ts = torch.where(torch.isfinite(Ts).all(-1).all(-1)[:, None, None], Ts,
+                     torch.eye(4, dtype=Ts.dtype, device=Ts.device))
+    inls, counts = classify(Ts, th_search)
+    best = torch.argmax(counts)[None]
+    T = Ts.index_select(0, best)[0]
+    inl = inls.index_select(0, best)[0]
+    # nonlinear refinement on the inlier set: Gauss-Newton, not a DLT
+    # refit, which is rank-degenerate on planar point sets
+    ths = [2.0 * th_px] + [th_px] * max(refine_rounds - 1, 1)
+    for th in ths:
+        T = _pnp_gn_refine(T, X, uv_n, inl.to(X.dtype))
+        inl, _ = classify(T, th)
+    n = inl.sum()
+    return T, inl, n, n >= min_inliers
+
+
+def pnp_ransac(gen: torch.Generator, X: torch.Tensor, uv: torch.Tensor,
+               valid: torch.Tensor, K: torch.Tensor, n_hyp: int = 256,
+               th_px: float = 5.991 ** 0.5, refine_rounds: int = 2,
+               min_inliers: int = 12):
+    """`pnp_samples` on `gen` (a CPU generator), then `pnp_solve`."""
+    idx6, idx4 = pnp_samples(gen, n_hyp, valid)
+    return pnp_solve(idx6, idx4, X, uv, valid, K, th_px, refine_rounds,
+                     min_inliers)
+
+
+def _pnp_gn_refine(T: torch.Tensor, X: torch.Tensor, uv_n: torch.Tensor,
+                   w: torch.Tensor, iters: int = 8) -> torch.Tensor:
+    """Weighted Gauss-Newton pose refinement in normalized image coords.
+    The 6x6 system is solved by LU without the host-side singularity
+    check."""
+    eye3 = torch.eye(3, dtype=X.dtype, device=X.device).expand(
+        X.shape[0], 3, 3)
+    eye6 = torch.eye(6, dtype=X.dtype, device=X.device)
+    for _ in range(iters):
+        xc = lie.se3_apply(T, X)
+        zc = xc[:, 2]
+        z = torch.where(zc.abs() > 1e-9, zc, torch.full_like(zc, 1e-9))
+        r = torch.stack([xc[:, 0] / z, xc[:, 1] / z], -1) - uv_n   # [N,2]
+        iz = 1.0 / z
+        zeros = torch.zeros_like(iz)
+        Jpi = torch.stack([
+            torch.stack([iz, zeros, -xc[:, 0] * iz * iz], -1),
+            torch.stack([zeros, iz, -xc[:, 1] * iz * iz], -1)], 1)  # [N,2,3]
+        Jx = torch.cat([eye3, -lie.hat(xc)], -1)              # [N,3,6]
+        J = Jpi @ Jx                                                # [N,2,6]
+        Jw = J * w[:, None, None]
+        H = torch.einsum('nri,nrj->ij', Jw, J) + 1e-8 * eye6
+        b = torch.einsum('nri,nr->i', Jw, r)
+        dx = -torch.linalg.solve_ex(H, b).result
+        T = lie.se3_exp(dx) @ T
+    return T

@@ -178,7 +178,7 @@ def solve_ba(prob: BAProblem, T_sc: torch.Tensor, adj_sc: torch.Tensor,
         dx_l = torch.where(prob.point_valid[:, None], dx_l,
                            torch.zeros_like(dx_l))
 
-        new_poses = lie.se3_exp_batch(dx_p) @ poses
+        new_poses = lie.se3_exp(dx_p) @ poses
         new_poses = torch.where(fixed[:, :, None], poses, new_poses)
         new_points = points + dx_l
 

@@ -68,7 +68,7 @@ def reproject_jacobians(T_cw: torch.Tensor, X: torch.Tensor,
     (types_six_dof_expmap.cpp:144-159)."""
     x_s = _apply(T_sc, _apply(T_cw, X))
     Jpi = _proj_jacobian(x_s, K)
-    J_std = torch.cat([-Jpi, Jpi @ lie.hat_batch(x_s)], -1)      # [..., 2, 6]
+    J_std = torch.cat([-Jpi, Jpi @ lie.hat(x_s)], -1)      # [..., 2, 6]
     J_pose = J_std @ adj_sc
     R_sw = T_sc[..., :3, :3] @ T_cw[..., :3, :3]
     J_point = -Jpi @ R_sw

@@ -4,9 +4,9 @@ fusion, and keyframe-pair triangulation.
 
 Port of orbslam2_dualcam_tpu/pipeline/frontend.py (make_extract_fn,
 make_track_fn, make_track_batch_fn, project_and_match[_batch],
-match_projection_pose, triangulate_pair[s_batch]; the two vocabulary
-matchers wait for the relocalization slice).  The fused step: extraction on both cameras + BoW quantization, stage-1
-motion-model projection matching + pose optimization with the widened
+match_projection_pose, triangulate_pair[s_batch], match_bow_frame_kf,
+match_desc_frame_kf).  The fused step: extraction on both cameras + BoW
+quantization, stage-1 motion-model projection matching + pose optimization with the widened
 retry, stage-2 local-map rematch + re-optimization, pose
 re-orthonormalization and the velocity update.
 
@@ -433,3 +433,27 @@ def triangulate_pairs_batch(T1, T2, cam, uv1, desc1, level1, free1,
                              free2[i], rig, level_scales, max_hamming)
             for i in range(T1.shape[0])]
     return tuple(torch.stack([o[j] for o in outs]) for j in range(3))
+
+
+def match_bow_frame_kf(desc_f, nodes_f, angle_f, valid_f, desc_k, nodes_k,
+                       angle_k, valid_k, max_dist, ratio: float):
+    """SearchByBoWCrossCam Frame<->KF (ORBmatcher.cc:162-296): brute-force
+    within equal direct-index nodes."""
+    allow = matching.node_mask(nodes_f, nodes_k) & (nodes_f >= 0)[:, None]
+    return matching.match_masked(
+        desc_f, desc_k, allow=allow, valid_a=valid_f, valid_b=valid_k,
+        max_dist=max_dist, ratio=ratio, angle_a=angle_f, angle_b=angle_k)
+
+
+def match_desc_frame_kf(desc_f, angle_f, valid_f, desc_k, angle_k, valid_k,
+                        max_dist, ratio: float):
+    """Windowless descriptor-only Frame<->KF match: the fallback when the
+    direct-index node mask of match_bow_frame_kf is too coarse (small
+    training vocabularies collapse distinct features into one node's
+    competition, or scatter true pairs across nodes).  The strict
+    threshold, Lowe ratio, mutual-best and rotation histogram carry the
+    outlier rejection instead."""
+    return matching.match_masked(
+        desc_f, desc_k, valid_a=valid_f, valid_b=valid_k,
+        max_dist=max_dist, ratio=ratio, angle_a=angle_f, angle_b=angle_k,
+        mutual=True)

@@ -6,12 +6,12 @@ keyframe queue; here it is a service the tracker calls per keyframe
 (synchronous by default for determinism; an async wrapper lives in
 pipeline/system.py).  The per-KF numeric work (epipolar triangulation, fuse
 matching, local BA) runs on the device the rig's tensors lie on; the map
-and every decision stay on the host.  SearchCrossCameras needs a vocabulary
-and a metric map and waits for the dual-bootstrap slice.
+and every decision stay on the host.
 
 Pipeline per keyframe (LocalMapping::Run, :65-135):
   ProcessNewKeyFrame -> MapPointCulling -> CreateNewMapPoints ->
-  SearchInNeighbors (fuse) -> LocalBundleAdjustment -> KeyFrameCulling.
+  SearchInNeighbors (fuse) -> SearchCrossCameras -> LocalBundleAdjustment
+  -> KeyFrameCulling.
 """
 
 from __future__ import annotations
@@ -23,12 +23,14 @@ import torch
 
 from orbslam2_dualcam_tpu_torch.models.map import (KeyFrame, Map,
                                                    update_point_stats)
+from orbslam2_dualcam_tpu_torch.ops import ransac
 from orbslam2_dualcam_tpu_torch.ops.camera import CameraRig
 from orbslam2_dualcam_tpu_torch.optim import ba
 from orbslam2_dualcam_tpu_torch.pipeline import ba_pack, frontend
 from orbslam2_dualcam_tpu_torch.utils.config import SystemConfig
 from orbslam2_dualcam_tpu_torch.utils.device import to_host, upload
 from orbslam2_dualcam_tpu_torch.utils.profiling import StageTimer
+from orbslam2_dualcam_tpu_torch.vocab import bow
 
 
 class LocalMapper:
@@ -54,6 +56,12 @@ class LocalMapper:
         self.n_capacity_skipped = 0   # triangulations refused at MP cap
         self.n_cross_harvested = 0           # SearchCrossCameras adds+merges
         self.last_cross_kid = -10**9         # last successful harvest KF
+        # PnP minimal sets of the cross-camera harvest are drawn on the
+        # CPU from the mapper's own generator; `pnp_sampler` may be
+        # replaced by a callable (n_hyp, valid) -> (idx6, idx4)
+        self.gen = torch.Generator().manual_seed(11)
+        self.pnp_sampler = (
+            lambda n_hyp, valid: ransac.pnp_samples(self.gen, n_hyp, valid))
         self.events: List[str] = []          # debug trail (cross harvest &c)
         self.ba_log: List[tuple] = []        # (kid, n_kf, n_mp, n_edge, cost)
         # async-pipeline hooks (set by pipeline/system.py): interrupt_check
@@ -277,17 +285,146 @@ class LocalMapper:
         (BoW query cam0 -> cam1 index), PnP-verify, widen by projection, and
         attach/merge the matched points as camera-0 observations.
 
-        Only the guard is ported: without a vocabulary or before the map is
-        metric the reference returns at once, and so does this."""
+        Points harvested here become cross-camera-observed
+        (mbViewdByDifCams): the only observations through which BA's
+        extrinsic-adjoint factor can pin metric scale, so densifying them
+        is what makes the dual rig actually metric."""
         m = self.map
         cfg = self.cfg
+        mc = cfg.mapping
         if (not m.map_scaled or self.kfdb is None or self.voc is None or
                 cfg.n_cameras < 2 or kf.word is None):
             return
-        raise NotImplementedError(
-            "LocalMapper._search_cross_cameras: the cross-camera harvest "
-            "needs a vocabulary, the keyframe database and PnP RANSAC; it "
-            "is ported with the dual-bootstrap slice")
+        if kf.kid <= self.last_cross_kid + mc.cross_kf_gap:
+            return
+        with self.timer("search_cross"):
+            self._harvest_cross_cameras(kf)
+
+    def _harvest_cross_cameras(self, kf: KeyFrame) -> None:
+        """The body of SearchCrossCameras once its gates have passed."""
+        m = self.map
+        cfg = self.cfg
+        mc = cfg.mapping
+        dev = self.device
+        ncam = cfg.n_cameras
+        N = len(kf.kp_valid) // ncam
+        words = kf.word[:N]
+        vvalid = kf.kp_valid[:N] & (words >= 0)
+        if int(vvalid.sum()) < 20:
+            return
+        vec = bow.sparse_bow(self.voc, words, vvalid)
+        cands = self.kfdb.detect_reloc_candidates(
+            np.where(vvalid, words, -1), vec, 0, 1, m)
+        # candidates must already be covisibility-connected (:592-597)
+        connected = set(m.covisible_kfs(kf))
+        kept = [kid for kid in cands if kid in connected]
+        if cands:
+            self.events.append(
+                f"XC@{kf.kid} cands={cands[:6]} conn={kept[:6]}")
+        cands = kept
+        g1 = 1 * N
+        for kid in cands[:5]:
+            ckf = m.keyframes.get(kid)
+            if ckf is None or ckf.is_bad:
+                continue
+            sl = slice(g1, g1 + N)
+            res = frontend.match_bow_frame_kf(
+                upload(kf.desc[:N].astype(np.uint32), dev),
+                upload(kf.node[:N], dev), upload(kf.angle[:N], dev),
+                upload(kf.kp_valid[:N], dev),
+                upload(ckf.desc[sl].astype(np.uint32), dev),
+                upload(ckf.node[sl], dev), upload(ckf.angle[sl], dev),
+                upload(ckf.kp_valid[sl] & (ckf.mp_idx[sl] >= 0), dev),
+                float(cfg.matcher.th_low), float(cfg.matcher.nn_ratio_bow))
+            idx = to_host((res.idx,))[0]
+            rows = np.nonzero(idx >= 0)[0]
+            if len(rows) < mc.cross_min_bow:
+                self.events.append(f"XCBOW@{kf.kid} cand={kid} n={len(rows)}")
+                continue
+            X, uv = [], []
+            for r in rows:
+                mid = int(ckf.mp_idx[g1 + idx[r]])
+                mp = m.points.get(mid)
+                if mp is None or mp.is_bad:
+                    continue
+                X.append(mp.pos)
+                uv.append(kf.uv[r])
+            if len(X) < mc.cross_min_bow:
+                continue
+            pvalid = torch.ones(len(X), dtype=torch.bool, device=dev)
+            idx6, idx4 = self.pnp_sampler(256, pvalid)
+            T_0w, _inl, cnt, ok = ransac.pnp_solve(
+                idx6.to(dev), idx4.to(dev),
+                upload(np.asarray(X, np.float32), dev),
+                upload(np.asarray(uv, np.float32), dev), pvalid,
+                self.rig.K[0])
+            T_0w, cnt, ok = to_host((T_0w, cnt, ok))
+            if not bool(ok) or int(cnt) < mc.cross_min_pose_inliers:
+                self.events.append(
+                    f"XCPNP@{kf.kid} cand={kid} inl={int(cnt)}")
+                continue
+            # guided-projection widening + pose opt against the candidate's
+            # map-point set, camera 0 only (the reference's inner frame with
+            # identity extrinsic, :644-700).  Two passes: wide then narrow
+            # (SearchByProjectionOnCam th=10 then th=3, :710-737).
+            pmids = sorted({int(x) for x in ckf.mp_idx[ckf.mp_idx >= 0]})
+            packed = self._pack_points(pmids)
+            pmids, pos, desc, valid, dmax, dmin, normal = packed
+            if valid.sum() < mc.cross_min_pose_inliers:
+                continue
+            cam_en = np.zeros(ncam, bool)
+            cam_en[0] = True
+            T_cur = np.asarray(T_0w, np.float64)  # T_sc[0] = I: rig pose
+            r2 = None
+            fdev = (upload(kf.uv.reshape(ncam, N, 2).astype(np.float32), dev),
+                    upload(kf.desc.reshape(ncam, N, 8).astype(np.uint32), dev),
+                    upload(kf.level.reshape(ncam, N), dev),
+                    upload(kf.angle.reshape(ncam, N), dev),
+                    upload(kf.kp_valid.reshape(ncam, N), dev))
+            pdev = (upload(pos, dev), upload(desc, dev), upload(valid, dev),
+                    upload(dmax, dev), upload(dmin, dev), upload(normal, dev))
+            for radius in (mc.cross_widen_radius, mc.cross_widen_radius2):
+                r2 = frontend.TrackResult(*to_host(
+                    frontend.match_projection_pose(
+                        upload(T_cur.astype(np.float32), dev), *fdev, *pdev,
+                        self.rig, float(radius), self._level_scales,
+                        float(cfg.matcher.th_high), 0.5,
+                        upload(cam_en, dev), ba=cfg.ba)))
+                T_cur = np.asarray(r2.T_cw, np.float64)
+            n_good = int(r2.n_inliers)
+            if n_good < mc.cross_min_good:
+                self.events.append(
+                    f"XCGOOD@{kf.kid} cand={kid} good={n_good}")
+                continue
+            # harvest (:752-775): attach as cam-0 observations or merge
+            slots = np.asarray(r2.mp_ids)[0]
+            n_add = n_rep = 0
+            for row in np.nonzero(slots >= 0)[0]:
+                mid1 = pmids[int(slots[row])]
+                mp1 = m.points.get(mid1)
+                if mp1 is None or mp1.is_bad:
+                    continue
+                cur = int(kf.mp_idx[row])
+                if cur < 0:
+                    if kf.kid not in mp1.obs:
+                        m.add_observation(mp1, kf, int(row), 0)
+                        n_add += 1
+                elif cur != mid1:
+                    mp2 = m.points.get(cur)
+                    if mp2 is not None and not mp2.is_bad:
+                        m.replace_point(mp2, mp1)
+                        n_rep += 1
+            m.update_connections(kf)
+            self.n_cross_harvested += n_add + n_rep
+            self.last_cross_kid = kf.kid
+            kf.connected_to_second_map = True
+            ckf.connected_to_second_map = True
+            self.cross_log = getattr(self, "cross_log", [])
+            self.cross_log.append((kf.kid, kid, n_good, n_add, n_rep))
+            self.events.append(
+                f"XCROSS@{kf.kid} cand={kid} good={n_good} "
+                f"add={n_add} rep={n_rep}")
+            return
 
     # ------------------------------------------------------------------
     def _local_ba(self, kf: KeyFrame) -> None:

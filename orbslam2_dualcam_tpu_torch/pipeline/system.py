@@ -1,8 +1,8 @@
 """System facade: construction, per-frame entry, savers.
 
 Port of orbslam2_dualcam_tpu/pipeline/system.py (src/System.cc in the
-original): builds the map, tracker and local mapper and exposes the
-per-frame TrackDual-style entry plus trajectory/map savers in the
+original): builds the map, keyframe database, tracker and local mapper
+and exposes the per-frame TrackDual-style entry plus trajectory/map savers in the
 reference's ``x y z qx qy qz qw [id]`` text format (System.cc:335-410).
 
 The original spawns LocalMapping/LoopClosing threads (System.cc:116-150);
@@ -13,30 +13,35 @@ where the original holds mMutexMapUpdate.  Both threads launch on the same
 CUDA stream, so their device work is serial; what overlaps is the mapper's
 device work with the tracker's host work and the reverse.
 
-This slice runs without a vocabulary: loop closing with a vocabulary, the
-viewer, a device mesh and deferred tracking raise NotImplementedError.
+With a vocabulary the system relocalizes by it and runs the dual-camera
+bootstrap to a metric map.  Loop closing with a vocabulary, the viewer, a
+device mesh and deferred tracking are not ported yet and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
 import torch
 
+from orbslam2_dualcam_tpu_torch.models.kfdb import KeyFrameDatabase
 from orbslam2_dualcam_tpu_torch.models.map import Map
 from orbslam2_dualcam_tpu_torch.ops import camera, lie
 from orbslam2_dualcam_tpu_torch.pipeline.local_mapping import LocalMapper
 from orbslam2_dualcam_tpu_torch.pipeline.tracking import Tracker, _waits
 from orbslam2_dualcam_tpu_torch.utils.config import SystemConfig
 from orbslam2_dualcam_tpu_torch.utils.device import resolve_device
+from orbslam2_dualcam_tpu_torch.vocab import bow
 
 
 class System:
-    def __init__(self, cfg: SystemConfig, voc=None,
+    def __init__(self, cfg: SystemConfig,
+                 voc: Optional[bow.Vocabulary] = None,
                  enable_loop_closing: bool = True,
                  async_mapping: bool = False,
                  mesh=None, viewer: bool = False,
@@ -45,16 +50,18 @@ class System:
         """`device`: where every device program of the system runs; None is
         the current CUDA device and raises where there is none.
 
-        `enable_loop_closing` has no effect without a vocabulary, as in
-        the reference.  A vocabulary, `mesh`, `viewer=True` and
-        `deferred_tracking=True` belong to later slices of the port and
-        raise NotImplementedError."""
-        if voc is not None:
-            raise _waits("relocalization" if not enable_loop_closing
-                         else "loop-closing",
-                         "System with a vocabulary (relocalization by "
-                         "vocabulary, the cross-camera bootstrap"
-                         + (", loop closing)" if enable_loop_closing else ")"))
+        `voc`: a vocabulary on that device; with one the system keeps a
+        keyframe database, relocalizes by it and, with two cameras, runs
+        the cross-camera bootstrap.  `enable_loop_closing` has no effect
+        without a vocabulary, as in the reference; with one it must be
+        False for now.  Loop closing, `mesh`, `viewer=True` and
+        `deferred_tracking=True` are not ported yet and raise
+        NotImplementedError."""
+        if voc is not None and enable_loop_closing:
+            raise _waits("loop-closing",
+                         "System with a vocabulary and "
+                         "enable_loop_closing=True (loop detection and "
+                         "closing)")
         if mesh is not None:
             raise _waits("distributed-BA", "System with a device mesh")
         if viewer:
@@ -66,10 +73,16 @@ class System:
         self.device = resolve_device(device)
         self.rig = camera.make_rig(cfg, device=self.device)
         self.map = Map()
-        self.voc = None
-        self.kfdb = None
+        self.voc = voc
+        self.kfdb = (KeyFrameDatabase(cfg.n_cameras, voc.n_words)
+                     if voc is not None else None)
+        if self.kfdb is not None:
+            # culling a keyframe must drop its inverted-file postings too,
+            # or reloc queries return dead candidates (KeyFrame.cc:668)
+            self.map.on_erase_keyframe.append(self.kfdb.erase)
         self.loop_closer = None
-        self.mapper = LocalMapper(cfg, self.rig, self.map)
+        self.mapper = LocalMapper(cfg, self.rig, self.map,
+                                  kfdb=self.kfdb, voc=voc)
         self._async = async_mapping
         self.map_lock = threading.Lock()
         self.frame_intervals: List[tuple] = []   # (t0, t1) per track() call
@@ -87,7 +100,7 @@ class System:
             front = _AsyncMapperProxy(self)
         else:
             front = self.mapper
-        self.tracker = Tracker(cfg, self.rig, None, self.map, None,
+        self.tracker = Tracker(cfg, self.rig, voc, self.map, self.kfdb,
                                local_mapper=front)
         if async_mapping:
             # KF back-pressure (the reference's LocalMapping idle check):
@@ -146,6 +159,8 @@ class System:
     def reset(self) -> None:
         """System/Tracking reset (Tracking.cc:1863-1918)."""
         self.map.clear()
+        if self.kfdb is not None:
+            self.kfdb.clear()
         self.tracker.reset_state()
         self.mapper.recent_mids.clear()
 

@@ -72,7 +72,9 @@ def rig_from_numpy(rig, device=None) -> CameraRig:
 
 def vocab_from_numpy(voc, device=None) -> Vocabulary:
     """Reference Vocabulary (centroids tuple of uint32 [k^(l+1), 8], idf,
-    optional word_map, as numpy) -> port Vocabulary on `device`."""
+    optional word_map, as numpy) -> port Vocabulary on `device`.  The idf
+    table is all `sparse_bow` needs of it; its host copy is made on first
+    use (vocab/bow.py)."""
     device = resolve_device(device)
     wm = voc.word_map
     return Vocabulary(
@@ -108,6 +110,28 @@ def map_from_reference(ref_map):
         setattr(m, name, getattr(ref_map, name))
     m.culled_redirect = copy.deepcopy(ref_map.culled_redirect)
     return m
+
+
+def kfdb_from_reference(ref_kfdb):
+    """A KeyFrameDatabase of the JAX package -> the port's with equal
+    postings and BoW vectors.  The reference must have been built with its
+    pure-Python index (`use_native=False`): the C++ index cannot be read
+    back."""
+    from orbslam2_dualcam_tpu_torch.models.kfdb import KeyFrameDatabase
+    from orbslam2_dualcam_tpu_torch.vocab.bow import SparseBow
+
+    if getattr(ref_kfdb, "native", None) is not None:
+        raise ValueError("kfdb_from_reference: the reference database uses "
+                         "its C++ index; build it with use_native=False")
+    db = KeyFrameDatabase(ref_kfdb.n_cameras, ref_kfdb.n_words)
+    for cam in range(ref_kfdb.n_cameras):
+        for w, kids in ref_kfdb.inverted[cam].items():
+            if kids:
+                db.inverted[cam][int(w)] = set(kids)
+        for kid, vec in ref_kfdb.bow[cam].items():
+            db.bow[cam][kid] = SparseBow(np.array(vec.words),
+                                         np.array(vec.weights))
+    return db
 
 
 def ba_problem_from_numpy(prob, device=None):

@@ -4,7 +4,9 @@ Port of orbslam2_dualcam_tpu/vocab/bow.py.  Training is the reference's
 numpy code (recursive k-majority, TemplatedVocabulary::create semantics),
 copied because the reference module imports jax.  Quantization descends
 the flattened tree on the device: each level gathers every descriptor's k
-candidate children and takes the XOR + popcount argmin.
+candidate children and takes the XOR + popcount argmin.  Document vectors
+for the keyframe database are sparse and live on the host (numpy), as in
+the reference; the dense form is kept for small trees.
 
 Descriptors are [N, 8] int32 words carrying the reference's uint32 bits
 (numpy ``.view(np.int32)``); torch has no popcount, so bits are counted
@@ -145,6 +147,41 @@ def train_vocabulary(desc: np.ndarray, branching: int = 10, depth: int = 4,
     return build(idf)
 
 
+def save_vocabulary(voc: Vocabulary, path: str) -> None:
+    """Write the tree in the reference's .npz layout (uint32 centroids)."""
+    extra = {}
+    if voc.word_map is not None:
+        extra["word_map"] = voc.word_map.cpu().numpy().astype(np.int32)
+    np.savez_compressed(
+        path, branching=voc.branching, depth=voc.depth,
+        direct_level=voc.direct_level, idf=voc.idf.cpu().numpy(),
+        n_words_leaves=voc.n_words_leaves,
+        **{f"level_{i}": c.cpu().numpy().view(np.uint32)
+           for i, c in enumerate(voc.centroids)},
+        **extra)
+
+
+def load_vocabulary(path: str, device=None) -> Vocabulary:
+    """Read a tree written by `save_vocabulary` (of either package) onto
+    `device` (None: the current CUDA device)."""
+    device = resolve_device(device)
+    z = np.load(path)
+    depth = int(z["depth"])
+    return Vocabulary(
+        branching=int(z["branching"]), depth=depth,
+        centroids=tuple(
+            torch.as_tensor(np.ascontiguousarray(
+                z[f"level_{i}"]).astype(np.uint32).view(np.int32),
+                device=device) for i in range(depth)),
+        idf=torch.as_tensor(z["idf"].astype(np.float32), device=device),
+        direct_level=int(z["direct_level"]),
+        word_map=(torch.as_tensor(z["word_map"].astype(np.int64),
+                                  device=device)
+                  if "word_map" in z else None),
+        n_words_leaves=int(z["n_words_leaves"])
+        if "n_words_leaves" in z else 0)
+
+
 # ---------------------------------------------------------------------------
 # device-side quantization
 # ---------------------------------------------------------------------------
@@ -182,3 +219,89 @@ def quantize(voc: Vocabulary, desc: torch.Tensor):
             direct = node
     word = node if voc.word_map is None else voc.word_map[node]
     return word, direct
+
+
+class BowVector(NamedTuple):
+    """tf-idf document vector as dense [n_words] weights (L1 normalized):
+    small enough for small trees to stay dense on the device."""
+
+    weights: torch.Tensor   # [n_words] float32
+
+
+def bow_vector(voc: Vocabulary, words: torch.Tensor,
+               valid: torch.Tensor) -> torch.Tensor:
+    """tf-idf L1-normalized dense BoW vector [n_words] on words' device.
+
+    Dense form, for small vocabularies; the system uses `sparse_bow` (an
+    ORBvoc-scale tree has 1e6 words = 4 MB per vector)."""
+    w = torch.zeros(voc.n_words, dtype=torch.float32, device=words.device)
+    w = w.index_add(0, words.to(torch.int64), valid.to(torch.float32))
+    w = w * voc.idf
+    s = w.abs().sum()
+    return w / torch.where(s > 0, s, torch.ones_like(s))
+
+
+def score_l1(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    """DBoW2 L1 score (ScoringObject.h:76) in [0, 1]; accepts [n_words] or
+    batched [..., n_words]."""
+    return 1.0 - 0.5 * (v1 - v2).abs().sum(-1)
+
+
+# ---------------------------------------------------------------------------
+# sparse BoW vectors (DBoW2 BowVector semantics, TemplatedVocabulary.h:679-720)
+# ---------------------------------------------------------------------------
+
+class SparseBow(NamedTuple):
+    """L1-normalized tf-idf document vector in sparse (word -> weight) form,
+    the representation DBoW2's BowVector uses (a sorted word->value map).
+    Host numpy: the inverted file that consumes it is host bookkeeping."""
+
+    words: np.ndarray     # [m] int32, sorted unique word ids
+    weights: np.ndarray   # [m] float32, L1-normalized
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.words.nbytes + self.weights.nbytes)
+
+
+_idf_np_cache: dict = {}
+
+
+def _idf_np(voc: Vocabulary) -> np.ndarray:
+    """Host copy of the idf table, cached per vocabulary: one readback
+    ever, so `sparse_bow` never waits for the card."""
+    key = id(voc.idf)
+    hit = _idf_np_cache.get(key)
+    if hit is None or hit[0] is not voc.idf:
+        _idf_np_cache.clear()     # at most one vocabulary live per system
+        hit = _idf_np_cache[key] = (voc.idf, voc.idf.cpu().numpy())
+    return hit[1]
+
+
+def sparse_bow(voc: Vocabulary, words: np.ndarray,
+               valid: np.ndarray) -> SparseBow:
+    """Host-side sparse tf-idf vector from per-feature word ids
+    (TemplatedVocabulary::transform -> BowVector::addWeight semantics)."""
+    w = np.asarray(words)[np.asarray(valid) & (np.asarray(words) >= 0)]
+    if len(w) == 0:
+        return SparseBow(np.empty(0, np.int32), np.empty(0, np.float32))
+    uw, cnt = np.unique(w, return_counts=True)
+    wt = cnt.astype(np.float64) * _idf_np(voc)[uw]
+    s = wt.sum()
+    if s > 0:
+        wt = wt / s
+    keep = wt > 0
+    return SparseBow(uw[keep].astype(np.int32), wt[keep].astype(np.float32))
+
+
+def score_sparse(a: SparseBow, b: SparseBow) -> float:
+    """L1 score between two L1-normalized sparse vectors: for nonnegative
+    L1-normalized vectors 1 - 0.5*sum|v1-v2| is the sum over common words
+    of min(a_i, b_i)."""
+    if len(a.words) == 0 or len(b.words) == 0:
+        return 0.0
+    _, ia, ib = np.intersect1d(a.words, b.words, assume_unique=True,
+                               return_indices=True)
+    if len(ia) == 0:
+        return 0.0
+    return float(np.minimum(a.weights[ia], b.weights[ib]).sum())

@@ -341,3 +341,142 @@ def test_solve_ba_chunk_never_synchronizes_and_matches_cpu():
     np.testing.assert_allclose(float(got.cost), float(want.cost), rtol=1e-3)
     assert (got.poses.cpu() - want.poses).abs().max().item() < 1e-4
     assert torch.equal(got.poses[0].cpu(), cprob.poses[0])
+
+
+def _pnp_scene(rng, n=150, n_out=40):
+    """The general scene of tests/test_torch_pnp.py, made with numpy."""
+    K = np.array([[500.0, 0, 320], [0, 500, 240], [0, 0, 1]], np.float32)
+    X = rng.uniform([-3, -2, 4], [3, 2, 10], size=(n, 3))
+    a = 0.1
+    T = np.eye(4)
+    T[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+    T[:3, 3] = [0.2, -0.1, 0.05]
+    xc = X @ T[:3, :3].T + T[:3, 3]
+    uv = xc[:, :2] / xc[:, 2:] * 500.0 + [320, 240] + rng.normal(0, 0.5, (n, 2))
+    out = rng.choice(n, n_out, replace=False)
+    uv[out] += rng.uniform(25, 100, (n_out, 2)) * rng.choice([-1, 1], (n_out, 2))
+    return X.astype(np.float32), uv.astype(np.float32), K, T
+
+
+@pytest.mark.gpu
+def test_pnp_solve_on_card_matches_cpu():
+    """The same 512 + 512 minimal sets on the card and on the CPU: the
+    batched SVDs differ (cuSOLVER against LAPACK), so the card is held to
+    bands: inlier counts within 2, rotation within 0.05 degrees,
+    translation within 1e-3 of the depth, and both at the scene's pose."""
+    _card()
+    from orbslam2_dualcam_tpu_torch.ops import ransac
+    X, uv, K, T_true = _pnp_scene(np.random.default_rng(7))
+    valid = torch.ones(len(X), dtype=torch.bool)
+    idx6, idx4 = ransac.pnp_samples(torch.Generator().manual_seed(3), 512, valid)
+    args = [torch.as_tensor(a) for a in (X, uv)] + [valid, torch.as_tensor(K)]
+    T_c, inl_c, n_c, ok_c = ransac.pnp_solve(idx6, idx4, *args)
+    T_g, inl_g, n_g, ok_g = ransac.pnp_solve(
+        idx6.cuda(), idx4.cuda(), *(a.cuda() for a in args))
+    assert T_g.device.type == "cuda" and bool(ok_c) and bool(ok_g)
+    assert abs(int(n_c) - int(n_g)) <= 2
+    assert (inl_g.cpu() == inl_c).float().mean() >= 0.98
+    T_g = T_g.cpu().numpy().astype(np.float64)
+    for other in (T_c.numpy().astype(np.float64), T_true):
+        tol_r, tol_t = (0.05, 7e-3) if other is not T_true else (1.5, 0.2)
+        c = (np.trace(T_g[:3, :3] @ other[:3, :3].T) - 1) / 2
+        assert np.degrees(np.arccos(np.clip(c, -1, 1))) < tol_r
+        assert np.abs(T_g[:3, 3] - other[:3, 3]).max() < tol_t
+
+
+@pytest.mark.gpu
+def test_pose_graph_on_card_matches_cpu():
+    """A 12-node ring with one loop edge, 20 LM steps: the final cost on
+    the card within 1% of the CPU's (the per-node sums are float atomics on
+    the card), node poses within 1e-3, and the loop closed (cost at least
+    10x under the initial)."""
+    _card()
+    from orbslam2_dualcam_tpu_torch.ops import lie
+    from orbslam2_dualcam_tpu_torch.optim import pose_graph
+    rng = np.random.default_rng(0)
+    K = 12
+    xi = np.zeros((K, 7), np.float32)
+    ang = 2 * np.pi * np.arange(K) / K
+    xi[:, 0], xi[:, 2], xi[:, 4] = 2 * np.cos(ang), 2 * np.sin(ang), ang
+    xi[:, 1], xi[:, 6] = 0.1 * np.arange(K), 0.02 * np.arange(K)
+    S_true = lie.sim3_exp(torch.as_tensor(xi)).numpy().astype(np.float64)
+    noise = lie.sim3_exp(torch.as_tensor(
+        rng.normal(0, 0.02, (K, 7)).astype(np.float32))).numpy().astype(np.float64)
+    S0 = [S_true[0]]
+    for k in range(1, K):
+        S0.append(noise[k] @ S_true[k] @ np.linalg.inv(S_true[k - 1]) @ S0[-1])
+    e_i = np.asarray(list(range(1, K)) + [K - 1])
+    e_j = np.asarray(list(range(0, K - 1)) + [0])
+    S_meas = [S0[i] @ np.linalg.inv(S0[j]) for i, j in zip(e_i[:-1], e_j[:-1])]
+    S_meas.append(S_true[K - 1] @ np.linalg.inv(S_true[0]))
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+    args = [torch.as_tensor(np.stack(S0).astype(np.float32)), torch.as_tensor(e_i),
+            torch.as_tensor(e_j), torch.as_tensor(np.stack(S_meas).astype(np.float32)),
+            torch.ones(K, dtype=torch.bool), torch.as_tensor(fixed)]
+    S_c, c_c = pose_graph.optimize_pose_graph(*args, iters=20)
+    _, c_0 = pose_graph.optimize_pose_graph(*args, iters=0)
+    on_card = [a.cuda() for a in args]
+    torch.cuda.synchronize()
+    # the whole solve queues on the stream: a host synchronization is an error
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        S_g, c_g = pose_graph.optimize_pose_graph(*on_card, iters=20)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert S_g.device.type == "cuda"
+    assert float(c_g) == pytest.approx(float(c_c), rel=0.01)
+    assert float(c_g) < 0.1 * float(c_0)
+    np.testing.assert_allclose(S_g.cpu().numpy(), S_c.numpy(), atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_optimal_map_scale_on_card_matches_cpu():
+    """A two-keyframe map whose 400 cross-camera edges are strained by 1.6:
+    alpha on the card within 1e-3 of the CPU's, and both near 1.6."""
+    _card()
+    from orbslam2_dualcam_tpu_torch.models.map import KeyFrame, Map
+    from orbslam2_dualcam_tpu_torch.optim import scale_opt
+    cam = dict(width=640, height=480, fx=500, fy=500, cx=320, cy=240)
+    cfg = SystemConfig(cameras=(CameraConfig(**cam),
+                                CameraConfig(**cam, t_sc=(-0.5, 0.0, 0.0))))
+    rng = np.random.default_rng(1)
+    n = 400
+    X = rng.uniform([-2, -1.5, 4], [2, 1.5, 8], (n, 3))
+    T_sc1 = np.eye(4)
+    T_sc1[:3, 3] = [-0.5, 0, 0]
+    m = Map()
+    kfs = []
+    for k in range(2):
+        T = np.eye(4)
+        T[0, 3] = -0.3 * k
+        uv = np.zeros((2 * n, 2))
+        for c, Tc in enumerate((np.eye(4), T_sc1)):
+            x = X @ (Tc @ T)[:3, :3].T + (Tc @ T)[:3, 3]
+            uv[c * n:(c + 1) * n] = x[:, :2] / x[:, 2:] * 500 + [320, 240]
+        uv += rng.normal(0, 0.5, uv.shape)
+        kf = KeyFrame(kid=m.new_kid(), frame_id=k, T_cw=T, uv=uv,
+                      kp_cam=np.repeat([0, 1], n),
+                      level=np.zeros(2 * n, np.int32),
+                      angle=np.zeros(2 * n, np.float32),
+                      desc=np.zeros((2 * n, 8), np.uint32),
+                      kp_valid=np.ones(2 * n, bool),
+                      mp_idx=np.full(2 * n, -1, np.int64),
+                      word=np.full(2 * n, -1, np.int64),
+                      node=np.full(2 * n, -1, np.int64))
+        m.add_keyframe(kf)
+        kfs.append(kf)
+    for i in range(n):
+        mp = m.new_point(X[i], 0, 0)
+        m.add_observation(mp, kfs[0], i, 0)
+        m.add_observation(mp, kfs[1], n + i, 1)
+    for kf in kfs:
+        kf.T_cw[:3, 3] /= 1.6
+    for mp in m.points.values():
+        mp.pos = mp.pos / 1.6
+    sigma2 = np.asarray(cfg.orb.scale_factors, np.float32) ** 2
+    a_c, e_c = scale_opt.optimal_map_scale(m, make_rig(cfg, device="cpu"), sigma2)
+    a_g, e_g = scale_opt.optimal_map_scale(m, make_rig(cfg), sigma2)
+    assert e_c == e_g == n
+    assert a_g == pytest.approx(a_c, abs=1e-3)
+    assert a_g == pytest.approx(1.6, rel=0.02)

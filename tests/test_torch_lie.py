@@ -160,3 +160,46 @@ def test_branch_points_are_finite_and_equal(name, arg):
     where one side of a select divides by ~0, the result is finite and the
     reference's."""
     _assert_close(*_both(name, arg.copy()))
+
+
+def _stacked_tangents():
+    """One sim3 tangent per (corner angle, sigma branch): [20, 7]."""
+    rng = np.random.default_rng(13)
+    return np.stack([
+        np.concatenate([rng.normal(size=3), a * _axis(14 + i), [sg]])
+        for i, a in enumerate(ANGLES.values()) for sg in _SIGMAS.values()
+    ]).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["hat", "so3_exp", "so3_log", "se3_exp",
+                                  "sim3_exp", "sim3_log", "sim3_inv",
+                                  "sim3_parts"])
+def test_leading_axes(name):
+    """Over leading axes [4, 5, ...] each function gives, element by
+    element, what it gives for a single transform (1e-6: the same
+    arithmetic, summed in another order) and what the reference's vmap
+    gives at the corner angles (the single-transform tolerances above)."""
+    import jax
+    xi = _stacked_tangents()
+    near_pi = np.repeat(np.array(list(ANGLES)) == "near_pi", len(_SIGMAS))
+    S = np.asarray(jax.vmap(jl.sim3_exp)(jnp.asarray(xi)))
+    arg = {"hat": xi[:, 3:6], "so3_exp": xi[:, 3:6],
+           "so3_log": np.asarray(jax.vmap(jl.so3_exp)(jnp.asarray(xi[:, 3:6]))),
+           "se3_exp": xi[:, :6], "sim3_exp": xi}.get(name, S)
+    fn = getattr(tl, name)
+    flat = fn(torch.as_tensor(arg))
+    grid = fn(torch.as_tensor(arg.reshape(4, 5, *arg.shape[1:])))
+    ref = jax.vmap(getattr(jl, name))(jnp.asarray(arg))
+    if not isinstance(flat, tuple):
+        flat, grid, ref = (flat,), (grid,), (ref,)
+    is_log = name.endswith("_log")
+    for part, (f, g, r) in enumerate(zip(flat, grid, ref)):
+        f, r = f.numpy(), np.asarray(r)
+        assert f.dtype == np.float32 and np.isfinite(f).all()
+        np.testing.assert_array_equal(g.numpy().reshape(f.shape), f)
+        for k in range(len(xi)):
+            one = fn(torch.as_tensor(arg[k]))
+            one = one[part] if isinstance(one, tuple) else one
+            np.testing.assert_allclose(f[k], one.numpy(), rtol=0, atol=1e-6)
+            atol = 5e-3 if (is_log and near_pi[k]) else 2e-5
+            np.testing.assert_allclose(f[k], r[k], rtol=0, atol=atol)

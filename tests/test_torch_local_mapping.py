@@ -24,7 +24,8 @@ from orbslam2_dualcam_tpu_torch.utils.convert import (config_from_reference,
                                                       map_from_reference)
 from orbslam2_dualcam_tpu_torch.utils.device import upload
 
-from torch_parity import (assert_snapshots_equal, map_snapshot, rendered_frame,
+from torch_parity import (assert_snapshots_equal, map_snapshot, random_desc,
+                          rendered_frame,
                           scripted_cfg, scripted_map, t)
 
 
@@ -244,11 +245,23 @@ def test_search_cross_cameras_guard_and_stub(setup):
     assert mapper._search_cross_cameras(pkf) is None      # no vocabulary
     import dataclasses
     dual = dataclasses.replace(cfg, cameras=cfg.cameras * 2)
-    mapper = local_mapping.LocalMapper(dual, rig, pm, kfdb=object(), voc=object())
+    from orbslam2_dualcam_tpu_torch.models.kfdb import KeyFrameDatabase
+    from orbslam2_dualcam_tpu_torch.vocab import bow
+    voc = bow.train_vocabulary(random_desc(np.random.default_rng(0), 200),
+                               branching=4, depth=2, device="cpu")
+    mapper = local_mapping.LocalMapper(dual, rig, pm,
+                                       kfdb=KeyFrameDatabase(2, voc.n_words),
+                                       voc=voc)
     assert mapper._search_cross_cameras(pkf) is None      # map not metric
+    assert "search_cross" not in mapper.timer.samples
     pm.map_scaled = True
-    with pytest.raises(NotImplementedError, match="dual-bootstrap slice"):
-        mapper._search_cross_cameras(pkf)
+    # a metric map and an empty database: the harvest runs, finds no
+    # candidate and changes nothing (it raised before it was ported)
+    before = map_snapshot(pm)
+    assert mapper._search_cross_cameras(pkf) is None
+    assert len(mapper.timer.samples["search_cross"]) == 1
+    assert mapper.n_cross_harvested == 0
+    assert_snapshots_equal(before, map_snapshot(pm))
 
 
 def test_make_extract_fn_equals_reference(setup):

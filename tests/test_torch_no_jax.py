@@ -26,14 +26,17 @@ for n in names:
     importlib.import_module(n)
 for n in %r:
     assert pkg.__name__ + "." + n in names, n
-assert len(names) >= 32, names
+assert len(names) >= 37, names
 """
 
-# the modules of the mono SLAM slice must be among those imported
+# the modules of the mono SLAM slice and of the vocabulary / dual-bootstrap
+# slice must be among those imported
 _SLAM_MODULES = ("models.map", "ops.epipolar", "ops.ransac", "optim.ba",
                  "optim.factors", "pipeline.ba_pack", "pipeline.local_mapping",
                  "pipeline.tracking", "pipeline.system", "utils.metrics",
-                 "utils.profiling")
+                 "utils.profiling", "models.kfdb", "vocab.orbvoc",
+                 "optim.scale_opt", "optim.pose_graph",
+                 "pipeline.loop_closing")
 _IMPORT_PACKAGE = _IMPORT_PACKAGE % (_SLAM_MODULES,)
 
 _CHECK = """
@@ -76,9 +79,11 @@ def test_no_source_imports_jax_or_the_jax_package():
     """No import statement in the port or in chip_smoke.py, at module level
     or inside a function, names jax or the JAX package."""
     files = _sources()
-    assert len(files) >= 34
+    assert len(files) >= 39
     assert {"tracking.py", "system.py", "local_mapping.py", "ba.py", "ransac.py",
-            "epipolar.py", "ba_pack.py", "map.py"} <= {p.name for p in files}
+            "epipolar.py", "ba_pack.py", "map.py", "kfdb.py", "orbvoc.py",
+            "scale_opt.py", "pose_graph.py", "loop_closing.py"} <= \
+        {p.name for p in files}
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -116,6 +121,57 @@ states = [s.track(synthetic.render_rig(world, K, T_sc, T, H=240, W=320), k / 30.
           for k, T in enumerate(poses[:5])]
 assert states[-1] == "OK", (states, s.tracker.events)
 assert s.map.n_keyframes >= 2 and s.mapper.timer.samples["triangulate"]
+"""
+    proc = subprocess.run([sys.executable, "-c", code + _CHECK], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT),
+                                   OMP_NUM_THREADS="1"),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_system_with_a_vocabulary_runs_without_jax():
+    """`System(cfg, voc).track` on a small dual rig for five frames on the
+    CPU in a fresh interpreter, the vocabulary trained there by the port:
+    keyframes reach the database, the first cross-camera relocalization is
+    attempted, and neither jax nor the JAX package is pulled in."""
+    code = """
+import numpy as np, torch
+torch.set_num_threads(1)
+from orbslam2_dualcam_tpu_torch import CameraConfig, OrbConfig, SystemConfig
+from orbslam2_dualcam_tpu_torch.ops import orb
+from orbslam2_dualcam_tpu_torch.pipeline.system import System
+from orbslam2_dualcam_tpu_torch.utils import synthetic
+from orbslam2_dualcam_tpu_torch.utils.config import VocabConfig
+from orbslam2_dualcam_tpu_torch.vocab import bow
+cam = dict(width=320, height=240, fx=260, fy=260, cx=160, cy=120)
+cfg = SystemConfig(cameras=(CameraConfig(**cam),
+                            CameraConfig(**cam, q_sc=(0.0, 0.0, 1.0, 0.0),
+                                         t_sc=(0.0, 0.0, 0.5))),
+                   orb=OrbConfig(n_features=400, n_levels=4),
+                   vocab=VocabConfig(branching=6, depth=2))
+world = synthetic.make_box_world(np.random.default_rng(42), half=6.0, tex_size=256)
+poses = synthetic.orbit_trajectory(45, radius=1.5, total_angle=0.8 * np.pi)
+K = np.array([[260.0, 0, 160], [0, 260, 120], [0, 0, 1]])
+descs = []
+for T in poses[::15]:
+    f = orb.extract_orb(torch.as_tensor(synthetic.render(world, K, T, H=240, W=320)),
+                        cfg.orb, 400)
+    descs.append(f.desc.numpy().view(np.uint32)[f.valid.numpy()])
+voc = bow.train_vocabulary(np.concatenate(descs), branching=6, depth=2, seed=1,
+                           weight_docs=descs, device="cpu")
+s = System(cfg, voc=voc, enable_loop_closing=False, device="cpu")
+K, T_sc = s.rig.K.numpy(), s.rig.T_sc.numpy()
+states = [s.track(synthetic.render_rig(world, K, T_sc, T, H=240, W=320), k / 30.0)
+          for k, T in enumerate(poses[:5])]
+assert states[-1] == "OK", (states, s.tracker.events)
+assert s.map.n_keyframes >= 2
+assert set(s.kfdb.bow[0]) == set(s.kfdb.bow[1]) == set(s.map.keyframes)
+assert any(e.startswith("XTRY@") for e in s.tracker.events), s.tracker.events
+assert s.tracker.timer.samples["xreloc"]
+s.set_compulsory_lost()
+state = s.track(synthetic.render_rig(world, K, T_sc, poses[5], H=240, W=320), 5 / 30.0)
+assert any(e.startswith("FORCED_LOST@") for e in s.tracker.events)
+assert s.tracker.timer.samples["relocalize"]
 """
     proc = subprocess.run([sys.executable, "-c", code + _CHECK], cwd=ROOT,
                           env=dict(os.environ, PYTHONPATH=str(ROOT),

@@ -2,7 +2,8 @@
 tests/test_mono_slam.py::small_cfg (one 320x240 camera, 400 features, 4
 levels) and on that file's sequences, held to that file's gates:
 initialization, tracking, keyframes, local mapping, local BA, the savers,
-`async_mapping=True`, and the branches that are not ported yet.  The
+`async_mapping=True`, and the branches that are not ported yet (with
+those that have been since).  The
 abrupt turn, the host-stepped path, `reset()` and the localization mode are
 in tests/test_torch_system_modes.py.
 
@@ -131,41 +132,77 @@ def test_async_mapping_meets_the_map_gates():
     assert sys_.mapper.ba_log
 
 
+def _tiny_voc():
+    from orbslam2_dualcam_tpu_torch.vocab import bow
+    desc = np.random.default_rng(0).integers(
+        0, 2 ** 32, (200, 8), dtype=np.uint64).astype(np.uint32)
+    return bow.train_vocabulary(desc, branching=4, depth=2, device="cpu")
+
+
 @pytest.mark.parametrize("what,kwargs,names", [
-    ("vocabulary", dict(voc=object(), enable_loop_closing=False), "relocalization slice"),
+    ("vocabulary", dict(voc="tiny", enable_loop_closing=False), None),
     ("loop closing", dict(voc=object(), enable_loop_closing=True), "loop-closing slice"),
     ("deferred", dict(deferred_tracking=True), "deferred-tracking slice"),
     ("viewer", dict(viewer=True), "surface"),
     ("mesh", dict(mesh=object()), "distributed-BA slice"),
 ])
 def test_system_stubs_raise_and_name_their_slice(what, kwargs, names):
+    """What is not ported raises and names its slice; a vocabulary without
+    loop closing is ported, and builds the keyframe database."""
     kw = dict(voc=None, enable_loop_closing=False, device="cpu")
     kw.update(kwargs)
+    if kw["voc"] == "tiny":
+        kw["voc"] = _tiny_voc()
+    if names is None:
+        sys_ = System(small_cfg(), **kw)
+        assert sys_.kfdb is not None and sys_.tracker.kfdb is sys_.kfdb
+        assert sys_.mapper.kfdb is sys_.kfdb and sys_.loop_closer is None
+        assert sys_.kfdb.erase in sys_.map.on_erase_keyframe
+        return
     with pytest.raises(NotImplementedError, match=names):
         System(small_cfg(), **kw)
 
 
 @pytest.mark.parametrize("what,kwargs,names", [
-    ("vocabulary", dict(voc=object()), "relocalization slice"),
-    ("keyframe database", dict(kfdb=object()), "relocalization slice"),
+    ("vocabulary", dict(voc="tiny"), None),
+    ("keyframe database", dict(kfdb="db"), None),
     ("deferred", dict(deferred=True), "deferred-tracking slice"),
     ("mesh", dict(mesh=object()), "distributed-BA slice"),
 ])
 def test_tracker_stubs_raise_and_name_their_slice(what, kwargs, names):
+    from orbslam2_dualcam_tpu_torch.models.kfdb import KeyFrameDatabase
     cfg = small_cfg()
+    kwargs = dict(kwargs)
+    if kwargs.get("voc") == "tiny":
+        kwargs["voc"] = _tiny_voc()
+    if kwargs.get("kfdb") == "db":
+        kwargs["kfdb"] = KeyFrameDatabase(cfg.n_cameras, 16)
+    if names is None:
+        tr = Tracker(cfg, make_rig(cfg, device="cpu"), **kwargs)
+        assert tr.voc is kwargs.get("voc") and tr.kfdb is kwargs.get("kfdb")
+        return
     with pytest.raises(NotImplementedError, match=names):
         Tracker(cfg, make_rig(cfg, device="cpu"), **kwargs)
 
 
+def test_loop_closer_is_a_stub():
+    from orbslam2_dualcam_tpu_torch.pipeline.loop_closing import LoopCloser
+    with pytest.raises(NotImplementedError, match="loop-closing slice"):
+        LoopCloser()
+
+
 def test_metric_map_state_is_a_stub():
+    """On a metric map `_update_full_state` counts the keyframes tied to
+    the second map: with none it stays where it is (it raised before the
+    dual bootstrap was ported)."""
     cfg = small_cfg()
     m = Map()
     tr = Tracker(cfg, make_rig(cfg, device="cpu"), slam_map=m)
     assert tr._update_full_state(None) is None      # not scaled: returns
     assert tr.flush() == "NOT_INITIALIZED"
     m.map_scaled = True
-    with pytest.raises(NotImplementedError, match="dual-bootstrap slice"):
-        tr._update_full_state(None)
+    assert tr._update_full_state(None) is None
+    assert tr.state == "NOT_INITIALIZED" and not tr.events
 
 
 def test_default_device_is_the_card():
