@@ -10,9 +10,10 @@
 Drives the port's main paths, the fused dual-camera tracking step
 (orbslam2_dualcam_tpu_torch.pipeline.frontend.make_track_fn), its batched
 form (make_track_batch_fn), the monocular SLAM system
-(pipeline.system.System.track without a vocabulary) and the dual-camera
+(pipeline.system.System.track without a vocabulary), the dual-camera
 system with a vocabulary (relocalization, the cross-camera bootstrap to a
-metric map), at the reference's operating point:
+metric map) and the system with loop closing (detection, Sim3 RANSAC and
+optimizer, correction, global BA), at the reference's operating point:
 2 x 640 x 480 frames, 1300 features per camera, 8 levels x 1.2, a 2048-slot
 map store and, for the step, a random vocabulary tree of ORBvoc's shape
 (k=10, depth 6).  Phases, each raising on failure:
@@ -72,7 +73,23 @@ map store and, for the step, a random vocabulary tree of ORBvoc's shape
      scale in (0.2, 4.0), relocalized within 10 frames of the forced loss,
      one K1 launch per track call.  Prints ms per track call by state
      (MONO, bootstrap, FULL), the stage timers, and the time of one
-     pnp_ransac, one scale solve, one pose graph and one metric global BA.
+     pnp_ransac, one scale solve, one pose graph and one metric global BA;
+  9. the loop: System(cfg, voc, enable_loop_closing=True) with camera 0 of
+     dual_default() alone (the reference's 1-camera mode of
+     tests/test_loop_closing.py) and dual_default()'s ORB, matcher, mapping,
+     loop and capacity settings, a 10-ary vocabulary of cfg.vocab.depth
+     levels trained on the card's own descriptors of 16 orbit frames, and
+     110 frames over 2.2 pi of an orbit of radius 1.5 m in the box room
+     (seed 7) looking along the tangent, 3.6 deg and 9.4 cm per frame:
+     past one full turn, so that consecutive detections build a consistent
+     group.  Synchronous, gated as that test gates: a loop closed, last
+     state OK, <= 3 LOST, Sim3-aligned ATE of the composed trajectory
+     under 0.8 m, every map point finite, one K1 launch per track call.
+     Prints ms per track call (median, max, the closing call apart), the
+     closing call's split (detect, Sim3 with CUDA events around the RANSAC
+     and the optimizer, the correction's fuse, pose graph (CUDA events) and
+     point statistics, the global BA), the accepted loop's log lines and the
+     keyframe ATE just before and just after the correction.
 
 The last line of standard output is a JSON object with "ok": true; it is
 printed only when every phase passed.  There is no CPU path: without a
@@ -95,7 +112,8 @@ from orbslam2_dualcam_tpu_torch.ops import fast_nms as k1
 from orbslam2_dualcam_tpu_torch.ops import ransac
 from orbslam2_dualcam_tpu_torch.ops.camera import make_rig
 from orbslam2_dualcam_tpu_torch.ops.orb import _tables, build_pyramid, level_shapes
-from orbslam2_dualcam_tpu_torch.optim import ba, pose_graph, pose_opt, scale_opt
+from orbslam2_dualcam_tpu_torch.optim import (ba, pose_graph, pose_opt, scale_opt,
+                                              sim3_opt)
 from orbslam2_dualcam_tpu_torch.pipeline import frontend
 from orbslam2_dualcam_tpu_torch.pipeline.system import System
 from orbslam2_dualcam_tpu_torch.utils import metrics, synthetic
@@ -151,6 +169,13 @@ DUAL_MAX_ATE_OF_SPAN = 0.10
 DUAL_SCALE_GATE = (0.2, 4.0)
 DUAL_SCALE_BAND = (0.75, 1.35)
 DUAL_SE3_ATE_BAND_OF_SPAN = 0.45
+# The loop phase: frames and total angle of the orbit (3.6 deg and 9.4 cm
+# per frame at radius 1.5 m), and the gates of tests/test_loop_closing.py.
+LOOP_FRAMES = 110
+LOOP_ANGLE = 2.2 * math.pi
+LOOP_RADIUS = 1.5
+LOOP_MAX_LOST = 3
+LOOP_MAX_ATE_M = 0.8
 
 
 def log(msg: str) -> None:
@@ -603,6 +628,16 @@ def time_k1(scene: Scene, device) -> dict:
     return r
 
 
+def u8_renderer(world, rig):
+    """T_cw -> the rig's u8 frames [ncam, H, W] of `world`."""
+    K, T_sc = rig.K.cpu().numpy(), rig.T_sc.cpu().numpy()
+
+    def render(T):
+        return np.clip(np.round(synthetic.render_rig(world, K, T_sc, T, H=H, W=W)),
+                       0, 255).astype(np.uint8)
+    return render
+
+
 def system_frames(cfg, device):
     """The rendered dual orbit of the system phase as u8 frames, its
     ground-truth poses and its path length."""
@@ -611,10 +646,8 @@ def system_frames(cfg, device):
     # 3.2 deg and 8.4 cm per frame, however many frames
     poses = synthetic.orbit_trajectory(SYS_FRAMES, radius=1.5,
                                        total_angle=0.8 * math.pi * SYS_FRAMES / 45)
-    rig = make_rig(cfg)
-    K, T_sc = rig.K.cpu().numpy(), rig.T_sc.cpu().numpy()
-    frames = [np.clip(np.round(synthetic.render_rig(world, K, T_sc, T, H=H, W=W)),
-                      0, 255).astype(np.uint8) for T in poses]
+    render = u8_renderer(world, make_rig(cfg))
+    frames = [render(T) for T in poses]
     centres = np.asarray([-T[:3, :3].T @ T[:3, 3] for T in poses])
     path = float(np.linalg.norm(np.diff(centres, axis=0), axis=1).sum())
     return frames, poses, centres, path
@@ -818,12 +851,7 @@ def dual_scene(cfg, device):
     Returns (voc, u8 frames, poses)."""
     world = synthetic.make_box_world(np.random.default_rng(3), half=6.0)
     rig = make_rig(cfg)
-    K, T_sc = rig.K.cpu().numpy(), rig.T_sc.cpu().numpy()
-
-    def render(T):
-        return np.clip(np.round(synthetic.render_rig(world, K, T_sc, T, H=H, W=W)),
-                       0, 255).astype(np.uint8)
-
+    render = u8_renderer(world, rig)
     extract = frontend.make_extract_fn(cfg, cfg.orb.n_track, None, rig)
     docs = []
     for T in synthetic.orbit_trajectory(10, radius=1.0):
@@ -1112,6 +1140,177 @@ def phase_dual(device, card: str) -> int:
     return launches
 
 
+def loop_config():
+    """Camera 0 of dual_default() alone, every other setting dual_default()'s."""
+    import dataclasses
+    cfg = dual_default()
+    return dataclasses.replace(cfg, cameras=(cfg.cameras[0],))
+
+
+def loop_scene(cfg, device):
+    """The box room of tests/test_loop_closing.py (seed 7), the vocabulary
+    trained on the card's own descriptors of 16 frames of the orbit, and the
+    rendered 110-frame orbit.  Returns (voc, u8 frames, poses)."""
+    world = synthetic.make_box_world(np.random.default_rng(7), half=6.0)
+    rig = make_rig(cfg)
+    render = u8_renderer(world, rig)
+    extract = frontend.make_extract_fn(cfg, cfg.orb.n_track, None, rig)
+    docs = []
+    for T in synthetic.orbit_trajectory(16, radius=LOOP_RADIUS):
+        f = extract(torch.as_tensor(render(T), device=device)).feats
+        docs.append(desc_to_numpy(f.desc)[0][f.valid.cpu().numpy()[0]])
+    t0 = time.perf_counter()
+    voc = bow.train_vocabulary(np.concatenate(docs), branching=cfg.vocab.branching,
+                               depth=cfg.vocab.depth, seed=5,
+                               direct_level=cfg.vocab.direct_index_level,
+                               weight_docs=docs)
+    log(f"  vocabulary: k={voc.branching}, depth {voc.depth}, {voc.n_words} words, "
+        f"trained on {sum(len(d) for d in docs)} descriptors of {len(docs)} images "
+        f"in {time.perf_counter() - t0:.1f} s (host k-majority; not gated)")
+    t0 = time.perf_counter()
+    poses = synthetic.orbit_trajectory(LOOP_FRAMES, radius=LOOP_RADIUS,
+                                       total_angle=LOOP_ANGLE)
+    frames = [render(T) for T in poses]
+    log(f"  rendered {len(frames)} frames 1x{H}x{W} in {time.perf_counter() - t0:.1f} s; "
+        f"{math.degrees(LOOP_ANGLE / LOOP_FRAMES):.2f} deg and "
+        f"{100 * LOOP_RADIUS * LOOP_ANGLE / LOOP_FRAMES:.2f} cm per frame")
+    return voc, frames, poses
+
+
+class LoopProbe:
+    """Records, for each track call in which the closer corrected a loop,
+    the frame, the keyframe ATE just before and just after the correction,
+    the closer's stage times of that call and CUDA-event times of the Sim3
+    RANSAC, the Sim3 optimizer and the pose graph.  The solvers are wrapped
+    at the module attributes the closer calls; `close()` puts them back."""
+
+    _TARGETS = ((ransac, "sim3_solve"), (sim3_opt, "optimize_sim3"),
+                (pose_graph, "optimize_pose_graph"))
+
+    def __init__(self, sys_, poses):
+        self.sys_, self.poses = sys_, poses
+        self.closings = []
+        self.events = {name: [] for _, name in self._TARGETS}
+        self._orig = [(mod, name, getattr(mod, name)) for mod, name in self._TARGETS]
+        for mod, name, fn in self._orig:
+            setattr(mod, name, self._timed(name, fn))
+        lc = sys_.loop_closer
+        self._on_kf, self._correct = lc.on_new_keyframe, lc._correct_loop
+        lc.on_new_keyframe, lc._correct_loop = self._on_new_keyframe, self._correct_loop
+
+    def _timed(self, name, fn):
+        def run(*args, **kwargs):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kwargs)
+            e1.record()
+            self.events[name].append((e0, e1))
+            return out
+        return run
+
+    def _correct_loop(self, kf, loop_kf, Scw, matched):
+        before = keyframe_accuracy(self.sys_, self.poses)[1]
+        self._correct(kf, loop_kf, Scw, matched)
+        after = keyframe_accuracy(self.sys_, self.poses)[1]
+        self.closings.append({"frame": kf.frame_id, "kid": kf.kid,
+                              "loop_kid": loop_kf.kid, "ate_before": before,
+                              "ate_after": after})
+
+    def _on_new_keyframe(self, kf):
+        lc = self.sys_.loop_closer
+        mark = {k: len(v) for k, v in lc.timer.samples.items()}
+        ev_mark = {k: len(v) for k, v in self.events.items()}
+        log_mark = len(lc.debug_log)
+        n0 = lc.n_loops_closed
+        self._on_kf(kf)
+        if lc.n_loops_closed > n0:
+            torch.cuda.synchronize()
+            c = self.closings[-1]
+            c["stages_ms"] = {k: 1e3 * sum(v[mark.get(k, 0):])
+                              for k, v in lc.timer.samples.items()
+                              if len(v) > mark.get(k, 0)}
+            c["events_ms"] = {k: [e0.elapsed_time(e1) for e0, e1 in v[ev_mark[k]:]]
+                              for k, v in self.events.items()}
+            c["log"] = lc.debug_log[log_mark:]
+
+    def close(self):
+        for mod, name, fn in self._orig:
+            setattr(mod, name, fn)
+        lc = self.sys_.loop_closer
+        lc.on_new_keyframe, lc._correct_loop = self._on_kf, self._correct
+
+
+def phase_loop(device, card: str) -> int:
+    """Phase 9.  Returns K1's launches over the run."""
+    cfg = loop_config()
+    voc, frames, poses = loop_scene(cfg, device)
+    sys_ = System(cfg, voc=voc, enable_loop_closing=True)
+    probe = LoopProbe(sys_, poses)
+    torch.cuda.synchronize()
+    k1.fast_nms.launches = 0
+    try:
+        states, ms, n_events = drive(sys_, frames, "loop")
+    finally:
+        probe.close()
+    launches = k1.fast_nms.launches
+    sys_.shutdown()
+    tr, m, lc = sys_.tracker, sys_.map, sys_.loop_closer
+    traj = tr.composed_trajectory()
+    est = metrics.trajectory_positions(traj)
+    gt = np.asarray([-poses[f][:3, :3].T @ poses[f][:3, 3] for f, _, _ in traj])
+    ate = float(metrics.ate_rmse(est, gt, with_scale=True)) if len(traj) > 3 \
+        else float("inf")
+    scale, kf_ate, _, span = keyframe_accuracy(sys_, poses) if m.n_keyframes > 3 \
+        else (float("nan"),) * 4
+    n_lost = states.count("LOST")
+    finite = all(np.isfinite(p.pos).all() for p in m.points.values())
+    closing = {c["frame"] for c in probe.closings}
+    first_ok = states.index("OK") if "OK" in states else len(states)
+    other = [t for k, t in enumerate(ms) if k > first_ok and k not in closing]
+    log(f"  loop ({card}): {lc.n_loops_closed} loop(s) closed at frames "
+        f"{[c['frame'] for c in probe.closings]} (keyframe {[c['kid'] for c in probe.closings]} "
+        f"against {[c['loop_kid'] for c in probe.closings]}); {n_lost} LOST, last state "
+        f"{states[-1]}; {m.n_keyframes} keyframes, {m.n_points} map points, "
+        f"{lc.n_loop_fused} fused by the loop; composed-trajectory Sim3 ATE {ate:.4f} m, "
+        f"keyframe Sim3 ATE {kf_ate:.4f} m on a span of {span:.3f} m, Umeyama scale "
+        f"{scale:.4f}; map points finite: {finite}")
+    if other:
+        log(f"  loop ({card}): System.track over {len(other)} tracked calls without a "
+            f"closing: ms/call median {np.median(other):.3f} (min {min(other):.3f}, max "
+            f"{max(other):.3f})")
+    for c in probe.closings:
+        st, ev = c["stages_ms"], c["events_ms"]
+        log(f"  loop ({card}): the closing call (frame {c['frame']}) took "
+            f"{ms[c['frame']]:.3f} ms; keyframe Sim3 ATE {c['ate_before']:.4f} m just "
+            f"before the correction, {c['ate_after']:.4f} m just after")
+        log(f"  loop ({card}): its split (host clock, ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(st.items())) +
+            "; CUDA events (ms): sim3_solve " + ", ".join(
+                f"{x:.3f}" for x in ev["sim3_solve"]) + "; optimize_sim3 " +
+            ", ".join(f"{x:.3f}" for x in ev["optimize_sim3"]) +
+            f"; optimize_pose_graph ({cfg.ba.pose_graph_iters} LM x 32 PCG) " +
+            ", ".join(f"{x:.3f}" for x in ev["optimize_pose_graph"]))
+        log(f"  loop: the accepted loop's log: {c['log']}")
+    log(f"  loop: closer stages over the run (host wall clock):\n    " +
+        lc.timer.report().replace("\n", "\n    "))
+    log(f"  loop: events {[e for e in tr.events if not e.startswith('KF@')]}")
+    log_stage_timers(sys_, "loop", card)
+    problems = []
+    if lc.n_loops_closed < 1:
+        problems.append(f"no loop closed; closer log {lc.debug_log[-8:]}")
+    if states[-1] != "OK" or n_lost > LOOP_MAX_LOST:
+        problems.append(f"last state {states[-1]}, {n_lost} LOST")
+    if not ate < LOOP_MAX_ATE_M:
+        problems.append(f"Sim3-aligned ATE {ate:.4f} m")
+    if not finite:
+        problems.append("a map point is not finite")
+    if launches != len(frames):
+        problems.append(f"K1 launched {launches} times over {len(frames)} track calls")
+    if problems:
+        raise AssertionError("loop: " + "; ".join(problems))
+    return launches
+
+
 def profile_system(device, card: str, n_warm: int = 8, n_prof: int = 5) -> None:
     """`--profile`: the synchronous system under torch.profiler for n_prof
     tracked frames after n_warm, and one 15-step local BA on the last
@@ -1205,14 +1404,14 @@ def main() -> int:
     # 1. card
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/8] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/9] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {name}, count {torch.cuda.device_count()}")
 
     # 2. build
     t0 = time.perf_counter()
     built = not _build.library_path().exists()
     _build.load_library()
-    log(f"[2/8] build: {'compiled' if built else 'cached'} "
+    log(f"[2/9] build: {'compiled' if built else 'cached'} "
         f"{_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
@@ -1220,14 +1419,14 @@ def main() -> int:
 
     # 3. K1 against its plain version
     k1_err = phase_k1(device)
-    log(f"[3/8] K1 agrees with its plain version at all level shapes, one level "
+    log(f"[3/9] K1 agrees with its plain version at all level shapes, one level "
         f"per launch and the pyramid in one launch (max |err| {k1_err})")
 
     # 4. the one-frame path at full width
     cfg = dual_default()
     t0 = time.perf_counter()
     scene = Scene(cfg, device)
-    log(f"[4/8] scene: {N_FRAMES} frames 2x{H}x{W}, {scene.n_feats} features/camera, "
+    log(f"[4/9] scene: {N_FRAMES} frames 2x{H}x{W}, {scene.n_feats} features/camera, "
         f"{int(scene.store.valid.sum())}/{scene.cap} store slots seeded, vocabulary "
         f"k=10 depth 6 ({sum(c.numel() * 4 for c in scene.voc.centroids) / 1e6:.1f} MB) "
         f"in {time.perf_counter() - t0:.1f} s")
@@ -1246,7 +1445,7 @@ def main() -> int:
     if batch_launches != DEPTH:
         raise AssertionError(f"K1 launched {batch_launches} times over a batch of "
                              f"{DEPTH} frames, expected 1 per frame")
-    log(f"[5/8] batched path: {DEPTH} frames equal the one-by-one run exactly; "
+    log(f"[5/9] batched path: {DEPTH} frames equal the one-by-one run exactly; "
         f"K1 launches {batch_launches} ({batch_launches / DEPTH:g} per frame)")
 
     # 6. timing
@@ -1254,7 +1453,7 @@ def main() -> int:
     t_span, spans = run_chain_with_spans(scene, device)
     t_rand = time_random(scene, device)
     med = float(np.median(t_rend))
-    log(f"[6/8] step ms/frame ({card}): rendered chain median {med:.3f} "
+    log(f"[6/9] step ms/frame ({card}): rendered chain median {med:.3f} "
         f"(min {min(t_rend):.3f}, max {max(t_rend):.3f}); random frames "
         f"(widened retry) median {np.median(t_rand):.3f} "
         f"(max {max(t_rand):.3f})")
@@ -1291,7 +1490,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sys_launches = phase_system(device, card)
-    log(f"[7/8] system: System.track initialized, tracked, mapped and bundle-"
+    log(f"[7/9] system: System.track initialized, tracked, mapped and bundle-"
         f"adjusted the orbit synchronously and with async_mapping; K1 launches "
         f"{sys_launches} over {SYS_FRAMES} track calls (1 per call); peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB; phase "
@@ -1302,7 +1501,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     dual_launches = phase_dual(device, card)
-    log(f"[8/8] dual bootstrap: System(cfg, voc).track walked out, turned and came "
+    log(f"[8/9] dual bootstrap: System(cfg, voc).track walked out, turned and came "
         f"back, relocalized across cameras, scaled the map by the baseline and "
         f"reached FULL, synchronously and with async_mapping, and relocalized by "
         f"vocabulary after a forced loss; K1 launches {dual_launches} (1 per track "
@@ -1311,10 +1510,21 @@ def main() -> int:
         f"{time.perf_counter() - t0:.0f} s, total "
         f"{time.perf_counter() - t_start:.0f} s")
 
+    # 9. the loop at full width
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop_launches = phase_loop(device, card)
+    log(f"[9/9] loop: System(cfg, voc, enable_loop_closing=True).track went past a "
+        f"full turn, detected the loop, computed and optimized its Sim3, corrected "
+        f"it and ran the global BA; K1 launches {loop_launches} (1 per track call); "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB; "
+        f"phase {time.perf_counter() - t0:.0f} s, total "
+        f"{time.perf_counter() - t_start:.0f} s")
+
     # launches: the one-frame chain's, the batch's, the synchronous mono
-    # system run's and the synchronous dual walk's, each counted from 0
-    # just before its path ran; times: the pyramid launch, as both paths
-    # call it, on the main path's own data
+    # system run's, the synchronous dual walk's and the loop run's, each
+    # counted from 0 just before its path ran; times: the pyramid launch,
+    # as every path calls it, on the main path's own data
     print(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda",
         "source": "orbslam2_dualcam_tpu_torch/csrc/fast_nms.cu",
@@ -1322,6 +1532,7 @@ def main() -> int:
         "launches": launches, "launches_batched_path": batch_launches,
         "launches_system_path": sys_launches,
         "launches_dual_path": dual_launches,
+        "launches_loop_path": loop_launches,
         "max_abs_err": k1_err,
         "ms": k["pyramid_device_ms"], "per_call_ms": k["pyramid_call_ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -6,9 +6,10 @@ quaternions are (w, x, y, z); se3 tangents are ``[rho(3), phi(3)]`` (g2o's
 SE3Quat::exp layout) and sim3 tangents ``[rho(3), phi(3), sigma(1)]`` with
 scale ``s = exp(sigma)``.
 
-hat, the SO3 and Sim3 functions and se3_exp work over any leading axes: a
-single transform is the case of none, where the reference would vmap.  The
-rest is unbatched on its trailing axes, as in the reference.
+hat, the SO3 and Sim3 functions, quat_to_rot and se3_exp work over any
+leading axes: a single transform is the case of none, where the reference
+would vmap.  The rest is unbatched on its trailing axes, as in the
+reference.
 
 The reference selects its series and closed forms with ``jnp.where``,
 which evaluates both sides; here too both sides are computed and selected
@@ -89,14 +90,14 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
 
 
 def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
-    """Unit quaternion (w,x,y,z) -> rotation matrix."""
-    q = q / (torch.linalg.vector_norm(q) + _EPS)
-    w, x, y, z = q[0], q[1], q[2], q[3]
+    """Unit quaternions (w,x,y,z) [..., 4] -> rotation matrices [..., 3, 3]."""
+    q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + _EPS)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     return torch.stack([
-        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)]),
-        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)]),
-        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]),
-    ])
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
 
 
 def rot_to_quat(R: torch.Tensor) -> torch.Tensor:

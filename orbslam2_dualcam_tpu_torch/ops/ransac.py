@@ -1,21 +1,20 @@
 """Batched RANSAC solvers: two-view initialization (homography /
-fundamental) and PnP.
+fundamental), PnP and Horn similarity (Sim3) alignment.
 
-Port of orbslam2_dualcam_tpu/ops/ransac.py lines 1-575: the original's
+Port of orbslam2_dualcam_tpu/ops/ransac.py: the original's
 Initializer.cc (H and F estimated side by side, model chosen by the score
-ratio RH > 0.40, then ReconstructH / ReconstructF with cheirality tests)
-and PnPsolver.cc (here 6-point DLT and plane-homography hypotheses, then
-Gauss-Newton on the consensus set), each with a fixed budget of hypotheses
-solved and scored as one batch.  The Sim3 solver of that file belongs to
-the loop-closing slice and is not here yet.
+ratio RH > 0.40, then ReconstructH / ReconstructF with cheirality tests),
+PnPsolver.cc (here 6-point DLT and plane-homography hypotheses, then
+Gauss-Newton on the consensus set) and Sim3Solver.cc (3-point Horn), each
+with a fixed budget of hypotheses solved and scored as one batch.
 
 Every hypothesis is a row of a leading batch axis (the reference's vmap):
 the minimal-set solvers take ``[..., k, 2]`` samples.  Sampling is split
 from solving: `two_view_samples` draws the minimal sets with a
 `torch.Generator` on the CPU (so a run on the card and a run on the CPU draw
 the same sets) and `two_view_solve` is a pure function of the sets, so a
-test can feed it sets drawn elsewhere; `pnp_samples` / `pnp_solve` split
-the same way.
+test can feed it sets drawn elsewhere; `pnp_samples` / `pnp_solve` and
+`sim3_samples` / `sim3_solve` split the same way.
 
 Small inverses are closed forms: `torch.linalg.inv` raises on a singular
 matrix, and degenerate samples make singular ones; the closed forms give
@@ -594,3 +593,100 @@ def _pnp_gn_refine(T: torch.Tensor, X: torch.Tensor, uv_n: torch.Tensor,
         dx = -torch.linalg.solve_ex(H, b).result
         T = lie.se3_exp(dx) @ T
     return T
+
+
+# ---------------------------------------------------------------------------
+# Horn Sim3
+# ---------------------------------------------------------------------------
+
+def horn_sim3(P1: torch.Tensor, P2: torch.Tensor, fix_scale: bool = False):
+    """Closed-form similarity aligning point sets: (R, t, s) minimizing
+    ||P1 - (s R P2 + t)||, Horn's quaternion method as in
+    Sim3Solver::ComputeSim3 (Sim3Solver.cc:251-363).  P1, P2 [..., n, 3]
+    (n >= 3); returns R [..., 3, 3], t [..., 3], s [...].  The quaternion is
+    the eigenvector of the largest eigenvalue, whose sign is free: compare
+    rotations, not quaternions."""
+    # centroids summed in float64: for a repeated point the mean is then the
+    # point itself, so a degenerate triple's scale is exactly 0 and it
+    # scores no inlier (in float32, the reference's sum * (1/3) can miss the
+    # point by an ulp, and the triple's garbage model then scores its own
+    # point)
+    c1 = P1.to(torch.float64).mean(-2).to(P1.dtype)
+    c2 = P2.to(torch.float64).mean(-2).to(P2.dtype)
+    Q1 = P1 - c1[..., None, :]
+    Q2 = P2 - c2[..., None, :]
+    M = Q2.transpose(-1, -2) @ Q1     # correlation (rotating P2 into P1)
+    Sxx, Sxy, Sxz = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    Syx, Syy, Syz = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    Szx, Szy, Szz = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    Nm = torch.stack([
+        torch.stack([Sxx + Syy + Szz, Syz - Szy, Szx - Sxz, Sxy - Syx], -1),
+        torch.stack([Syz - Szy, Sxx - Syy - Szz, Sxy + Syx, Szx + Sxz], -1),
+        torch.stack([Szx - Sxz, Sxy + Syx, -Sxx + Syy - Szz, Syz + Szy], -1),
+        torch.stack([Sxy - Syx, Szx + Sxz, Syz + Szy, -Sxx - Syy + Szz], -1)],
+        -2)
+    _, v = torch.linalg.eigh(Nm)
+    R = lie.quat_to_rot(v[..., :, -1])
+    if fix_scale:
+        s = torch.ones_like(c1[..., 0])
+    else:
+        s = (Q1 * (Q2 @ R.transpose(-1, -2))).sum((-2, -1)) / torch.clamp(
+            (Q2 * Q2).sum((-2, -1)), min=1e-12)
+    t = c1 - s[..., None] * (R @ c2[..., :, None])[..., 0]
+    return R, t, s
+
+
+def sim3_samples(gen: torch.Generator, n_hyp: int, valid: torch.Tensor):
+    """Draw the minimal sets of `sim3_solve`: [n_hyp, 3] on valid's device,
+    sampled among the valid rows."""
+    idx = _sample_indices(gen, n_hyp, 3, valid.shape[0], valid.to(torch.float32))
+    return idx.to(valid.device)
+
+
+def sim3_solve(idx: torch.Tensor, P1: torch.Tensor, P2: torch.Tensor,
+               valid: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor,
+               K1: torch.Tensor, K2: torch.Tensor, sigma2_1: torch.Tensor,
+               sigma2_2: torch.Tensor, fix_scale: bool = False,
+               chi2: float = 9.210):
+    """Batched 3-point Sim3 RANSAC from given minimal sets idx [n_hyp, 3]
+    (Sim3Solver::iterate, Sim3Solver.cc:158-232): a Horn (R, t, s) per
+    camera-frame point triple, inliers by mutual reprojection chi2 (9.210
+    sigma^2, Sim3Solver.cc:105-106).
+
+    P1/P2 [N, 3] matched points in the two *camera* frames, uv1/uv2 their
+    pixel observations.  Returns (R, t, s mapping 2 -> 1, inliers, count,
+    ok = count >= 6); the best hypothesis is the first of the largest count.
+    A degenerate triple (repeated or collinear points) gives inf/nan from
+    the adjugate inverse, which compares as no inlier; nothing is read
+    back."""
+    R, t, s = horn_sim3(P1[idx], P2[idx], fix_scale)          # [H,3,3] ...
+
+    def project(K, X):
+        z = torch.where(X[..., 2].abs() > 1e-9, X[..., 2],
+                        torch.full_like(X[..., 2], 1e-9))
+        return torch.stack([K[0, 0] * X[..., 0] / z + K[0, 2],
+                            K[1, 1] * X[..., 1] / z + K[1, 2]], -1)
+
+    p2in1 = s[:, None, None] * (P2 @ R.transpose(-1, -2)) + t[:, None, :]
+    e1 = ((project(K1, p2in1) - uv1) ** 2).sum(-1)
+    sR_inv = lie.inv3(s[:, None, None] * R)
+    p1in2 = (P1 - t[:, None, :]) @ sR_inv.transpose(-1, -2)
+    e2 = ((project(K2, p1in2) - uv2) ** 2).sum(-1)
+    inls = valid & (e1 < chi2 * sigma2_1) & (e2 < chi2 * sigma2_2)
+    counts = inls.sum(-1)
+    best = torch.argmax(counts)[None]
+    cnt = counts.index_select(0, best)[0]
+    return (R.index_select(0, best)[0], t.index_select(0, best)[0],
+            s.index_select(0, best)[0], inls.index_select(0, best)[0], cnt,
+            cnt >= 6)
+
+
+def sim3_ransac(gen: torch.Generator, P1: torch.Tensor, P2: torch.Tensor,
+                valid: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor,
+                K1: torch.Tensor, K2: torch.Tensor, sigma2_1: torch.Tensor,
+                sigma2_2: torch.Tensor, n_hyp: int = 128,
+                fix_scale: bool = False, chi2: float = 9.210):
+    """`sim3_samples` on `gen` (a CPU generator), then `sim3_solve`."""
+    idx = sim3_samples(gen, n_hyp, valid)
+    return sim3_solve(idx, P1, P2, valid, uv1, uv2, K1, K2, sigma2_1,
+                      sigma2_2, fix_scale, chi2)

@@ -7,16 +7,17 @@ reference's ``x y z qx qy qz qw [id]`` text format (System.cc:335-410).
 
 The original spawns LocalMapping/LoopClosing threads (System.cc:116-150);
 here stages run synchronously by default (deterministic).
-`async_mapping=True` moves the local-mapping work onto a background thread
-fed by a keyframe queue, with the map guarded by a coarse lock exactly
-where the original holds mMutexMapUpdate.  Both threads launch on the same
-CUDA stream, so their device work is serial; what overlaps is the mapper's
-device work with the tracker's host work and the reverse.
+`async_mapping=True` moves the local-mapping work, and the loop closer that
+runs after it on each keyframe, onto a background thread fed by a keyframe
+queue, with the map guarded by a coarse lock exactly where the original
+holds mMutexMapUpdate.  Both threads launch on the same CUDA stream, so
+their device work is serial; what overlaps is the mapper's device work
+with the tracker's host work and the reverse.
 
-With a vocabulary the system relocalizes by it and runs the dual-camera
-bootstrap to a metric map.  Loop closing with a vocabulary, the viewer, a
-device mesh and deferred tracking are not ported yet and raise
-NotImplementedError.
+With a vocabulary the system relocalizes by it, runs the dual-camera
+bootstrap to a metric map and, unless `enable_loop_closing=False`, closes
+loops (detection, Sim3, correction, global BA).  The viewer, a device mesh
+and deferred tracking are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from orbslam2_dualcam_tpu_torch.models.kfdb import KeyFrameDatabase
 from orbslam2_dualcam_tpu_torch.models.map import Map
 from orbslam2_dualcam_tpu_torch.ops import camera, lie
 from orbslam2_dualcam_tpu_torch.pipeline.local_mapping import LocalMapper
+from orbslam2_dualcam_tpu_torch.pipeline.loop_closing import LoopCloser
 from orbslam2_dualcam_tpu_torch.pipeline.tracking import Tracker, _waits
 from orbslam2_dualcam_tpu_torch.utils.config import SystemConfig
 from orbslam2_dualcam_tpu_torch.utils.device import resolve_device
@@ -51,17 +53,11 @@ class System:
         the current CUDA device and raises where there is none.
 
         `voc`: a vocabulary on that device; with one the system keeps a
-        keyframe database, relocalizes by it and, with two cameras, runs
-        the cross-camera bootstrap.  `enable_loop_closing` has no effect
-        without a vocabulary, as in the reference; with one it must be
-        False for now.  Loop closing, `mesh`, `viewer=True` and
-        `deferred_tracking=True` are not ported yet and raise
-        NotImplementedError."""
-        if voc is not None and enable_loop_closing:
-            raise _waits("loop-closing",
-                         "System with a vocabulary and "
-                         "enable_loop_closing=True (loop detection and "
-                         "closing)")
+        keyframe database, relocalizes by it, with two cameras runs the
+        cross-camera bootstrap and, with `enable_loop_closing`, closes
+        loops; without one `enable_loop_closing` has no effect, as in the
+        reference.  `mesh`, `viewer=True` and `deferred_tracking=True` are
+        not ported yet and raise NotImplementedError."""
         if mesh is not None:
             raise _waits("distributed-BA", "System with a device mesh")
         if viewer:
@@ -81,7 +77,11 @@ class System:
             # or reloc queries return dead candidates (KeyFrame.cc:668)
             self.map.on_erase_keyframe.append(self.kfdb.erase)
         self.loop_closer = None
+        if enable_loop_closing and voc is not None:
+            self.loop_closer = LoopCloser(cfg, self.rig, self.map, self.kfdb,
+                                          voc)
         self.mapper = LocalMapper(cfg, self.rig, self.map,
+                                  loop_closer=self.loop_closer,
                                   kfdb=self.kfdb, voc=voc)
         self._async = async_mapping
         self.map_lock = threading.Lock()
@@ -163,6 +163,9 @@ class System:
             self.kfdb.clear()
         self.tracker.reset_state()
         self.mapper.recent_mids.clear()
+        if self.loop_closer is not None:
+            self.loop_closer.consistent_groups.clear()
+            self.loop_closer.last_loop_kid = -1
 
     # ------------------------------------------------------------------
     # savers (System.cc:335-410 formats)

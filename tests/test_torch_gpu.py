@@ -480,3 +480,86 @@ def test_optimal_map_scale_on_card_matches_cpu():
     assert e_c == e_g == n
     assert a_g == pytest.approx(a_c, abs=1e-3)
     assert a_g == pytest.approx(1.6, rel=0.02)
+
+
+def _sim3_scene(rng, n=100, outlier_share=0.3, s=1.3):
+    """The pairs of tests/test_torch_sim3.py (P1 = s R P2 + t, pixels with
+    0.3 px of noise, a share of the pairs corrupted, per-pair level
+    sigma2), made with numpy."""
+    from orbslam2_dualcam_tpu_torch.ops import lie
+    K = np.array([[300.0, 0, 160], [0, 300, 120], [0, 0, 1]], np.float32)
+    R = lie.so3_exp(torch.tensor([0.1, -0.2, 0.05])).numpy().astype(np.float64)
+    t = np.array([0.3, -0.1, 0.4])
+    P2 = rng.uniform([-2, -2, 4], [2, 2, 9], (n, 3))
+    P1 = s * P2 @ R.T + t
+
+    def proj(X):
+        return X[:, :2] / X[:, 2:] * 300.0 + [160, 120] + rng.normal(0, 0.3, (n, 2))
+
+    uv1, uv2 = proj(P1), proj(P2)
+    bad = rng.choice(n, int(outlier_share * n), replace=False)
+    P2[bad] += rng.uniform(0.5, 1.5, (len(bad), 3))
+    sig2 = (1.2 ** (2 * rng.integers(0, 3, (2, n)))).astype(np.float32)
+    S = np.eye(4)
+    S[:3, :3], S[:3, 3] = s * R, t
+    return ([torch.as_tensor(a.astype(np.float32)) for a in (P1, P2, uv1, uv2)]
+            + [torch.as_tensor(sig2[0]), torch.as_tensor(sig2[1]),
+               torch.as_tensor(K)], S)
+
+
+def _rot_deg(Ra, Rb) -> float:
+    d = np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64))
+    return float(np.degrees(2.0 * np.arcsin(min(d / (2.0 * np.sqrt(2.0)), 1.0))))
+
+
+@pytest.mark.gpu
+def test_sim3_solve_and_optimize_sim3_on_card_match_cpu():
+    """The same 128 minimal sets, then the two-stage optimizer, on the card
+    and on the CPU: the batched eigh differs (cuSOLVER against LAPACK), so
+    the card is held to bands: inlier masks within 2 points, rotation
+    within 0.05 degrees, scale within 1e-3."""
+    _card()
+    from orbslam2_dualcam_tpu_torch.ops import lie, ransac
+    from orbslam2_dualcam_tpu_torch.optim import sim3_opt
+    (P1, P2, uv1, uv2, s1, s2, K), S_true = _sim3_scene(np.random.default_rng(5))
+    valid = torch.ones(len(P1), dtype=torch.bool)
+    idx = ransac.sim3_samples(torch.Generator().manual_seed(11), 128, valid)
+    args = (P1, P2, valid, uv1, uv2, K, K, s1, s2)
+    R_c, t_c, s_c, inl_c, n_c, ok_c = ransac.sim3_solve(idx, *args)
+    R_g, t_g, s_g, inl_g, n_g, ok_g = ransac.sim3_solve(
+        idx.cuda(), *(a.cuda() for a in args))
+    assert R_g.device.type == "cuda" and bool(ok_c) and bool(ok_g)
+    assert (inl_g.cpu() != inl_c).sum() <= 2
+    assert _rot_deg(R_g.cpu(), R_c) < 0.05
+    assert abs(float(s_g) - float(s_c)) < 1e-3
+    S0 = lie.sim3(R_c, t_c, s_c)
+    opt = (P1, P2, uv1, uv2, 1.0 / s1, 1.0 / s2, inl_c, K, K)
+    S_oc, io_c, no_c = sim3_opt.optimize_sim3(S0, *opt)
+    S_og, io_g, no_g = sim3_opt.optimize_sim3(S0.cuda(), *(a.cuda() for a in opt))
+    assert S_og.device.type == "cuda"
+    assert (io_g.cpu() != io_c).sum() <= 2 and int(no_g) >= 60
+    S_og, S_oc = S_og.cpu().numpy().astype(np.float64), S_oc.numpy().astype(np.float64)
+    for other, tol in ((S_oc, 0.05), (S_true, 0.5)):
+        sg, so = np.cbrt(np.linalg.det(S_og[:3, :3])), np.cbrt(np.linalg.det(other[:3, :3]))
+        assert _rot_deg(S_og[:3, :3] / sg, other[:3, :3] / so) < tol
+        assert abs(sg - so) < (1e-3 if tol == 0.05 else 0.02)
+
+
+@pytest.mark.gpu
+def test_optimize_sim3_never_synchronizes():
+    """Both LM stages, the outlier pass and the inlier count queue on the
+    stream: with host synchronization made an error the call completes."""
+    _card()
+    from orbslam2_dualcam_tpu_torch.optim import sim3_opt
+    (P1, P2, uv1, uv2, s1, s2, K), S_true = _sim3_scene(np.random.default_rng(6))
+    args = [torch.as_tensor(S_true.astype(np.float32))] + [
+        a.cuda() for a in (P1, P2, uv1, uv2, 1.0 / s1, 1.0 / s2)]
+    args[0] = args[0].cuda()
+    valid, Kc = torch.ones(len(P1), dtype=torch.bool, device="cuda"), K.cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        S, inl, n = sim3_opt.optimize_sim3(*args, valid, Kc, Kc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(n) >= 60 and torch.isfinite(S).all()

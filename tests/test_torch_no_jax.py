@@ -26,7 +26,7 @@ for n in names:
     importlib.import_module(n)
 for n in %r:
     assert pkg.__name__ + "." + n in names, n
-assert len(names) >= 37, names
+assert len(names) >= 38, names
 """
 
 # the modules of the mono SLAM slice and of the vocabulary / dual-bootstrap
@@ -36,7 +36,7 @@ _SLAM_MODULES = ("models.map", "ops.epipolar", "ops.ransac", "optim.ba",
                  "pipeline.tracking", "pipeline.system", "utils.metrics",
                  "utils.profiling", "models.kfdb", "vocab.orbvoc",
                  "optim.scale_opt", "optim.pose_graph",
-                 "pipeline.loop_closing")
+                 "pipeline.loop_closing", "optim.sim3_opt")
 _IMPORT_PACKAGE = _IMPORT_PACKAGE % (_SLAM_MODULES,)
 
 _CHECK = """
@@ -79,10 +79,11 @@ def test_no_source_imports_jax_or_the_jax_package():
     """No import statement in the port or in chip_smoke.py, at module level
     or inside a function, names jax or the JAX package."""
     files = _sources()
-    assert len(files) >= 39
+    assert len(files) >= 40
     assert {"tracking.py", "system.py", "local_mapping.py", "ba.py", "ransac.py",
             "epipolar.py", "ba_pack.py", "map.py", "kfdb.py", "orbvoc.py",
-            "scale_opt.py", "pose_graph.py", "loop_closing.py"} <= \
+            "scale_opt.py", "pose_graph.py", "loop_closing.py",
+            "sim3_opt.py"} <= \
         {p.name for p in files}
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
@@ -130,10 +131,11 @@ assert s.map.n_keyframes >= 2 and s.mapper.timer.samples["triangulate"]
 
 
 def test_system_with_a_vocabulary_runs_without_jax():
-    """`System(cfg, voc).track` on a small dual rig for five frames on the
-    CPU in a fresh interpreter, the vocabulary trained there by the port:
-    keyframes reach the database, the first cross-camera relocalization is
-    attempted, and neither jax nor the JAX package is pulled in."""
+    """`System(cfg, voc).track`, loop closing on, on a small dual rig for
+    five frames on the CPU in a fresh interpreter, the vocabulary trained
+    there by the port: keyframes reach the database and the loop closer,
+    the first cross-camera relocalization is attempted, and neither jax nor
+    the JAX package is pulled in."""
     code = """
 import numpy as np, torch
 torch.set_num_threads(1)
@@ -159,7 +161,7 @@ for T in poses[::15]:
     descs.append(f.desc.numpy().view(np.uint32)[f.valid.numpy()])
 voc = bow.train_vocabulary(np.concatenate(descs), branching=6, depth=2, seed=1,
                            weight_docs=descs, device="cpu")
-s = System(cfg, voc=voc, enable_loop_closing=False, device="cpu")
+s = System(cfg, voc=voc, enable_loop_closing=True, device="cpu")
 K, T_sc = s.rig.K.numpy(), s.rig.T_sc.numpy()
 states = [s.track(synthetic.render_rig(world, K, T_sc, T, H=240, W=320), k / 30.0)
           for k, T in enumerate(poses[:5])]
@@ -168,6 +170,7 @@ assert s.map.n_keyframes >= 2
 assert set(s.kfdb.bow[0]) == set(s.kfdb.bow[1]) == set(s.map.keyframes)
 assert any(e.startswith("XTRY@") for e in s.tracker.events), s.tracker.events
 assert s.tracker.timer.samples["xreloc"]
+assert len(s.loop_closer.timer.samples["detect"]) >= 2
 s.set_compulsory_lost()
 state = s.track(synthetic.render_rig(world, K, T_sc, poses[5], H=240, W=320), 5 / 30.0)
 assert any(e.startswith("FORCED_LOST@") for e in s.tracker.events)

@@ -398,6 +398,7 @@ def tail(world_and_map):
         tr._update_full_state(f)
     stage("refresh")
     rt.local_mapper = mapper_r
+    out["trackers"] = (rt, pt)
     return out
 
 
@@ -510,3 +511,56 @@ def test_metric_refresh_equals_reference(tail):
     assert len(ev_r) == 1 and ev_r[0].startswith("MGBA@910 xedges=")
     _assert_events_equal(ev_r, ev_p)
     _assert_maps_close(snap_r, snap_p)
+
+
+def test_loop_correction_on_the_metric_map_equals_reference(tail, world_and_map):
+    """After FULL: `_match_loop_points` and `_correct_loop` (fuse through
+    every camera, the map being scaled, the per-camera point correction,
+    the essential graph, the global BA) for the newest keyframe of the walk
+    out against the second, whose region its camera 0 faces, at its pose
+    perturbed by a Sim3 (scale 1.02, 3 cm, 0.5 degrees), on both sides.
+    The port starts from the reference's map carried across: the two
+    tails' maps agree only to the tolerance above, and the global BA
+    would carry that past it."""
+    from orbslam2_dualcam_tpu.ops import lie as ref_lie
+    from orbslam2_dualcam_tpu.pipeline import loop_closing as ref_lc
+    from orbslam2_dualcam_tpu_torch.pipeline import loop_closing
+
+    import jax.numpy as jnp
+    s = world_and_map
+    rt, pt = tail["trackers"]
+    assert rt.map.map_scaled and pt.state == rt.state == "FULL"
+    pmap = map_from_reference(rt.map)
+    rl = ref_lc.LoopCloser(rt.cfg, rt.rig, rt.map, rt.kfdb, rt.voc)
+    pl = loop_closing.LoopCloser(s["cfg"], s["rig"], pmap, pt.kfdb, s["voc"])
+    kids = sorted(rt.map.keyframes)
+    kid = max(k for k in kids if rt.map.keyframes[k].frame_id < N_FRAMES)
+    lkid = kids[1]
+    P = np.eye(4)
+    P[:3, :3] = 1.02 * np.asarray(ref_lie.so3_exp(jnp.asarray(
+        [0.0, np.deg2rad(0.5), 0.0], jnp.float32)), np.float64)
+    P[:3, 3] = [0.03, 0.0, 0.0]
+    Scw = P @ rt.map.keyframes[kid].T_cw
+    N = len(rt.map.keyframes[kid].kp_valid) // 2
+    found = []
+    for lc, m in ((rl, rt.map), (pl, pmap)):
+        mids = lc._loop_region_mids(m.keyframes[lkid])
+        pairs, adds, n = lc._match_loop_points(m.keyframes[kid], Scw, mids, N)
+        found.append((mids, pairs, adds, n))
+        lc._correct_loop(m.keyframes[kid], m.keyframes[lkid], Scw,
+                         (pairs, adds, mids))
+    (mids_r, pairs_r, adds_r, n_r), (mids_p, pairs_p, adds_p, n_p) = found
+    assert mids_p == mids_r and n_r > 20 and abs(n_p - n_r) <= 0.02 * n_r
+    for a, b in ((pairs_r, pairs_p), (adds_r, adds_p)):
+        assert len(set(a) & set(b)) >= 0.98 * max(len(a), len(b))
+    assert pl.n_loop_fused == rl.n_loop_fused > 0
+    assert pl.debug_log == rl.debug_log
+    snap_r, snap_p = map_snapshot(rt.map), map_snapshot(pmap)
+    _assert_maps_close(snap_r, snap_p)
+    for k in snap_r["keyframes"]:
+        assert snap_p["keyframes"][k]["loop_edges"] == \
+            snap_r["keyframes"][k]["loop_edges"]
+    assert snap_p["keyframes"][kid]["loop_edges"] == [lkid]
+    assert snap_p["first_scale_kid"] == snap_r["first_scale_kid"] >= 0
+    # the fuse ran through camera 1 as well: observations by camera 1 grew
+    assert _n_cross_obs(snap_p) >= _n_cross_obs(tail["refresh"][1])

@@ -141,14 +141,15 @@ def _tiny_voc():
 
 @pytest.mark.parametrize("what,kwargs,names", [
     ("vocabulary", dict(voc="tiny", enable_loop_closing=False), None),
-    ("loop closing", dict(voc=object(), enable_loop_closing=True), "loop-closing slice"),
+    ("loop closing", dict(voc="tiny", enable_loop_closing=True), None),
     ("deferred", dict(deferred_tracking=True), "deferred-tracking slice"),
     ("viewer", dict(viewer=True), "surface"),
     ("mesh", dict(mesh=object()), "distributed-BA slice"),
 ])
 def test_system_stubs_raise_and_name_their_slice(what, kwargs, names):
-    """What is not ported raises and names its slice; a vocabulary without
-    loop closing is ported, and builds the keyframe database."""
+    """What is not ported raises and names its slice; a vocabulary, with
+    loop closing or without, is ported, and builds the keyframe database
+    (and the loop closer, which the mapper calls)."""
     kw = dict(voc=None, enable_loop_closing=False, device="cpu")
     kw.update(kwargs)
     if kw["voc"] == "tiny":
@@ -156,8 +157,14 @@ def test_system_stubs_raise_and_name_their_slice(what, kwargs, names):
     if names is None:
         sys_ = System(small_cfg(), **kw)
         assert sys_.kfdb is not None and sys_.tracker.kfdb is sys_.kfdb
-        assert sys_.mapper.kfdb is sys_.kfdb and sys_.loop_closer is None
+        assert sys_.mapper.kfdb is sys_.kfdb
         assert sys_.kfdb.erase in sys_.map.on_erase_keyframe
+        if kw["enable_loop_closing"]:
+            lc = sys_.loop_closer
+            assert sys_.mapper.loop_closer is lc and lc is not None
+            assert (lc.map, lc.kfdb, lc.voc) == (sys_.map, sys_.kfdb, kw["voc"])
+        else:
+            assert sys_.loop_closer is None
         return
     with pytest.raises(NotImplementedError, match=names):
         System(small_cfg(), **kw)
@@ -186,9 +193,19 @@ def test_tracker_stubs_raise_and_name_their_slice(what, kwargs, names):
 
 
 def test_loop_closer_is_a_stub():
+    """The loop closer builds (it raised before loop closing was ported) and
+    skips detection while the map holds fewer than `loop_kf_gap`
+    keyframes."""
+    from orbslam2_dualcam_tpu_torch.models.kfdb import KeyFrameDatabase
     from orbslam2_dualcam_tpu_torch.pipeline.loop_closing import LoopCloser
-    with pytest.raises(NotImplementedError, match="loop-closing slice"):
-        LoopCloser()
+    cfg = small_cfg()
+    voc = _tiny_voc()
+    m = Map()
+    lc = LoopCloser(cfg, make_rig(cfg, device="cpu"), m,
+                    KeyFrameDatabase(cfg.n_cameras, voc.n_words), voc)
+    assert lc.device.type == "cpu" and lc.sim3_sampler is not None
+    assert lc._detect(type("KF", (), {"kid": 0})()) == []
+    assert (lc.n_loops_closed, lc.n_loop_fused, lc.debug_log) == (0, 0, [])
 
 
 def test_metric_map_state_is_a_stub():

@@ -127,6 +127,129 @@ def scripted_map(map_mod, seed: int = 0, n_kf: int = 6, n_feat: int = 400,
     return m, kfs[-1], scale_factors
 
 
+def scripted_loop_map(seed: int = 0, n_out: int = 8, n_back: int = 5,
+                      n_feat: int = 400, n_pts: int = 700,
+                      drift=(1.05, (0.05, 0.0, 0.0), 1.0)):
+    """A small mono map of the reference with a loop to close, its keyframe
+    database (the pure-Python postings) and the vocabulary its words come
+    from.
+
+    n_out keyframes crab-walk along x (0.3 m apart) in front of a cloud of
+    n_pts points, as in `scripted_map`.  Then n_back revisit keyframes come
+    back over the start (true centres 0.1 ... 0.7 m along x): they see the
+    same 3D points, but through NEW map points, and their stored poses and
+    points lie in a frame drifted by the Sim3 `drift` = (scale, translation,
+    degrees about y), as a monocular map drifts around a loop.  Every
+    keyframe's descriptor rows are quantized by a vocabulary (8^3) trained
+    on the points' descriptors, so BoW matching and the database work.
+    Returns (map, kfdb, vocabulary, revisit kids)."""
+    import jax.numpy as jnp
+
+    from orbslam2_dualcam_tpu.models import kfdb as ref_kfdb
+    from orbslam2_dualcam_tpu.models import map as ref_map
+    from orbslam2_dualcam_tpu.ops import lie as ref_lie
+    from orbslam2_dualcam_tpu.vocab import bow as ref_bow
+
+    rng = np.random.default_rng(seed)
+    K = small_K()
+    scale_factors = (1.2 ** np.arange(4)).astype(np.float32)
+    X = np.stack([rng.uniform(-4, 5.5, n_pts), rng.uniform(-2, 2, n_pts),
+                  rng.uniform(4, 8, n_pts)], 1)
+    base_desc = rng.integers(0, 2 ** 32, (n_pts, 8), dtype=np.uint32)
+    base_angle = rng.uniform(0, 2 * np.pi, n_pts)
+    base_level = rng.integers(0, 2, n_pts)
+    voc = ref_bow.train_vocabulary(base_desc, branching=8, depth=3, seed=seed)
+    s_d, t_d, deg = drift
+    D = np.eye(4)
+    D[:3, :3] = s_d * np.asarray(ref_lie.so3_exp(jnp.asarray(
+        [0.0, np.deg2rad(deg), 0.0], jnp.float32)), np.float64)
+    D[:3, 3] = t_d
+    D_inv = np.linalg.inv(D)
+    m = ref_map.Map()
+    T_sc = np.eye(4)[None]
+
+    def se3_of_sim3(S):
+        s = np.cbrt(np.linalg.det(S[:3, :3]))
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = S[:3, :3] / s, S[:3, 3] / s
+        return T
+
+    def view(T_true, T_store, frame_id):
+        """A keyframe at true pose T_true, stored at T_store; returns it and
+        the row of each point it sees."""
+        x = X @ T_true[:3, :3].T + T_true[:3, 3]
+        uv = (x[:, :2] / x[:, 2:]) * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
+        vis = np.nonzero((uv[:, 0] > 8) & (uv[:, 0] < 312) & (uv[:, 1] > 8) &
+                         (uv[:, 1] < 232))[0][:n_feat]
+        n = len(vis)
+        kuv = np.zeros((n_feat, 2))
+        kuv[:n] = uv[vis] + rng.normal(0, 0.3, (n, 2))
+        desc = np.zeros((n_feat, 8), np.uint32)
+        flips = np.zeros((n, 8), np.uint32)
+        for _ in range(4):
+            flips[np.arange(n), rng.integers(0, 8, n)] ^= (
+                np.uint32(1) << rng.integers(0, 32, n).astype(np.uint32))
+        desc[:n] = base_desc[vis] ^ flips
+        level = np.zeros(n_feat, np.int32)
+        level[:n] = base_level[vis]
+        angle = np.zeros(n_feat, np.float32)
+        angle[:n] = base_angle[vis] + rng.normal(0, 0.02, n)
+        valid = np.arange(n_feat) < n
+        w, nd = ref_bow.quantize(voc, jnp.asarray(desc))
+        word = np.where(valid, np.asarray(w), -1).astype(np.int64)
+        node = np.where(valid, np.asarray(nd), -1).astype(np.int64)
+        kf = ref_map.KeyFrame(
+            kid=m.new_kid(), frame_id=frame_id, T_cw=T_store.copy(), uv=kuv,
+            kp_cam=np.zeros(n_feat, np.int64), level=level, angle=angle,
+            desc=desc, kp_valid=valid, mp_idx=np.full(n_feat, -1, np.int64),
+            word=word, node=node)
+        m.add_keyframe(kf)
+        return kf, {int(p): r for r, p in enumerate(vis)}
+
+    def observe(kfs, rows_of, where):
+        """Map 60% of the points, at `where(X)`, observed by most of the
+        keyframes that see them (a fifth of the observations left out)."""
+        mapped = rng.random(n_pts) < 0.6
+        for p in np.nonzero(mapped)[0]:
+            p = int(p)
+            seen = [k for k in range(len(kfs)) if p in rows_of[k]]
+            if len(seen) < 2:
+                continue
+            mp = m.new_point(where(X[p]) + rng.normal(0, 0.01, 3),
+                             kfs[seen[0]].kid, 0)
+            for k in seen:
+                if rng.random() < 0.2 and len(mp.obs) >= 2:
+                    continue
+                m.add_observation(mp, kfs[k], rows_of[k][p], 0)
+            if len(mp.obs) < 2:
+                m.erase_point(mp)
+
+    out, rows_out = [], []
+    for k in range(n_out):
+        T = np.eye(4)
+        T[:3, 3] = [-0.3 * k, 0.0, 0.0]
+        kf, rows = view(T, T, 3 * k)
+        out.append(kf)
+        rows_out.append(rows)
+    observe(out, rows_out, lambda x: x)
+    back, rows_back = [], []
+    for j in range(n_back):
+        T = np.eye(4)
+        T[:3, 3] = [-(0.1 + 0.15 * j), 0.0, 0.0]
+        kf, rows = view(T, se3_of_sim3(T @ D_inv), 3 * (n_out + j))
+        back.append(kf)
+        rows_back.append(rows)
+    observe(back, rows_back, lambda x: D[:3, :3] @ x + D[:3, 3])
+    for mp in list(m.points.values()):
+        ref_map.update_point_stats(mp, m, T_sc, scale_factors)
+    db = ref_kfdb.KeyFrameDatabase(1, voc.n_words, use_native=False)
+    for kf in out + back:
+        m.update_connections(kf)
+        v = kf.kp_valid & (kf.word >= 0)
+        db.add(kf.kid, 0, kf.word[v], ref_bow.sparse_bow(voc, kf.word, v))
+    return m, db, voc, [kf.kid for kf in back]
+
+
 def map_snapshot(m) -> dict:
     """Everything a Map holds, as plain comparable Python/numpy values."""
     kfs = {}
@@ -135,7 +258,7 @@ def map_snapshot(m) -> dict:
             frame_id=kf.frame_id, T_cw=kf.T_cw.copy(), mp_idx=kf.mp_idx.copy(),
             covis=dict(kf.covis), parent=kf.parent,
             children=sorted(kf.children), is_bad=kf.is_bad,
-            scaled=kf.scaled)
+            scaled=kf.scaled, loop_edges=sorted(kf.loop_edges))
     pts = {}
     for mid, mp in m.points.items():
         pts[mid] = dict(
@@ -146,7 +269,8 @@ def map_snapshot(m) -> dict:
             first_kf_id=mp.first_kf_id, replaced_by=mp.replaced_by)
     return dict(keyframes=kfs, points=pts, next_kid=m.next_kid,
                 next_mid=m.next_mid, origin_kid=m.origin_kid,
-                map_scaled=m.map_scaled, geometry_epoch=m.geometry_epoch,
+                map_scaled=m.map_scaled, first_scale_kid=m.first_scale_kid,
+                geometry_epoch=m.geometry_epoch,
                 culled_redirect={k: (v[0], v[1].copy())
                                  for k, v in m.culled_redirect.items()})
 
