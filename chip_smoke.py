@@ -12,8 +12,9 @@ Drives the port's main paths, the fused dual-camera tracking step
 form (make_track_batch_fn), the monocular SLAM system
 (pipeline.system.System.track without a vocabulary), the dual-camera
 system with a vocabulary (relocalization, the cross-camera bootstrap to a
-metric map) and the system with loop closing (detection, Sim3 RANSAC and
-optimizer, correction, global BA), at the reference's operating point:
+metric map), the system with loop closing (detection, Sim3 RANSAC and
+optimizer, correction, global BA) and the video CLI with its settings,
+vocabulary and map files and the cloud tools, at the reference's operating point:
 2 x 640 x 480 frames, 1300 features per camera, 8 levels x 1.2, a 2048-slot
 map store and, for the step, a random vocabulary tree of ORBvoc's shape
 (k=10, depth 6).  Phases, each raising on failure:
@@ -89,7 +90,23 @@ map store and, for the step, a random vocabulary tree of ORBvoc's shape
      closing call's split (detect, Sim3 with CUDA events around the RANSAC
      and the optimizer, the correction's fuse, pose graph (CUDA events) and
      point statistics, the global BA), the accepted loop's log lines and the
-     keyframe ATE just before and just after the correction.
+     keyframe ATE just before and just after the correction;
+ 10. the run path, what a user runs: a settings file in the original's
+     format for phase 8's rig (read back equal in every field it carries),
+     phase 8's vocabulary saved as .npz, and the first 40 frames of phase
+     8's walk as one side-by-side MJPG video; `python3 -m
+     orbslam2_dualcam_tpu_torch.run` on them in a child process (exit 0,
+     the four artifacts), and the same video through the CLI's own pieces
+     (run.video_frames, run.track_stream, run.write_artifacts) in this
+     process with K1's launches counted and each call timed.  Gates: the
+     artifacts, a frame line per tracked frame, one K1 launch per track
+     call, keyframe Sim3 ATE within phase 8's band; then the child's map.npz
+     restored (keyframe and point counts, points and keyframe poses equal to
+     the text files to their print precision), rebuild_kfdb on the card's
+     vocabulary (each keyframe finds itself by its own BoW vector), tools
+     convert --voxel 0.05, and fit_planes on the card and on the CPU (same
+     planes, normals within 1e-3, inlier counts within 1).  Prints ms per
+     track call beside phase 8's over the same frames, and fit_planes' ms.
 
 The last line of standard output is a JSON object with "ok": true; it is
 printed only when every phase passed.  There is no CPU path: without a
@@ -176,6 +193,12 @@ LOOP_ANGLE = 2.2 * math.pi
 LOOP_RADIUS = 1.5
 LOOP_MAX_LOST = 3
 LOOP_MAX_ATE_M = 0.8
+
+# phase 10, the run path: the CLI's frame loop over the first 40 frames of
+# phase 8's walk, as one joint MJPG video (the card's machine has cv2; it
+# has no matplotlib, so the live viewer's drawing is not driven there)
+RUN_FRAMES = 40
+RUN_CLI_TIMEOUT_S = 600
 
 
 def log(msg: str) -> None:
@@ -653,14 +676,18 @@ def system_frames(cfg, device):
     return frames, poses, centres, path
 
 
+def require_card(sys_) -> None:
+    if sys_.rig.K.device.type != "cuda":
+        raise AssertionError(f"System() landed on {sys_.rig.K.device}")
+
+
 def drive(sys_, frames, label: str, period_ms: float = 0.0, k0: int = 0):
     """System.track over `frames` (numbered from k0) on the current CUDA
     device, one K1 launch per call counted, each call timed between two
     synchronizations of the card.  With `period_ms`, frame k is not handed
     over before k * period_ms.  Returns the states, the ms per call and the
     number of tracker events after each call."""
-    if sys_.rig.K.device.type != "cuda":
-        raise AssertionError(f"System() landed on {sys_.rig.K.device}")
+    require_card(sys_)
     states, ms, n_events = [], [], []
     t_run = time.perf_counter()
     for k, img in enumerate(frames):
@@ -873,10 +900,10 @@ def dual_scene(cfg, device):
     return voc, frames, poses
 
 
-def keyframe_accuracy(sys_, poses):
+def keyframe_accuracy(m, poses):
     """(Umeyama scale, Sim3-aligned ATE, SE3-aligned ATE, span) of the
-    keyframe centres against the ground truth of their frames."""
-    kfs = [sys_.map.keyframes[k] for k in sorted(sys_.map.keyframes)]
+    keyframe centres of map `m` against the ground truth of their frames."""
+    kfs = [m.keyframes[k] for k in sorted(m.keyframes)]
     est = np.asarray([kf.center() for kf in kfs])
     gt = np.asarray([-poses[kf.frame_id][:3, :3].T @ poses[kf.frame_id][:3, 3]
                      for kf in kfs])
@@ -960,7 +987,7 @@ def run_dual(cfg, voc, frames, poses, label: str, card: str,
     if async_mapping and sys_._mapper_thread.is_alive():
         raise AssertionError(f"{label}: the mapping thread did not stop")
     ev, m, mp = tr.events, sys_.map, sys_.mapper
-    scale, ate_sim3, ate_se3, span = keyframe_accuracy(sys_, poses)
+    scale, ate_sim3, ate_se3, span = keyframe_accuracy(sys_.map, poses)
     n_lost = states.count("LOST")
     n_cam1 = sum(1 for p in m.points.values() if any(c == 1 for c in p.obs_cam.values()))
     first = {name: next((int(e.split("@")[1].split()[0]) for e in ev
@@ -1119,8 +1146,10 @@ def time_dual_solvers(sys_, card: str) -> None:
         f"unpacking) ({card}): ms {1e3 * (time.perf_counter() - t0):.3f}")
 
 
-def phase_dual(device, card: str) -> int:
-    """Phase 8.  Returns K1's launches over the synchronous walk."""
+def phase_dual(device, card: str):
+    """Phase 8.  Returns K1's launches over the synchronous walk and what
+    phase 10 reuses: the vocabulary, the walk's frames and poses, and the
+    synchronous run's ms per call."""
     cfg = dual_config()
     voc, frames, poses = dual_scene(cfg, device)
     torch.cuda.synchronize()
@@ -1137,7 +1166,8 @@ def phase_dual(device, card: str) -> int:
     log(f"  async run paced at the synchronous run's median, {period:.3f} ms/frame")
     run_dual(cfg, voc, frames, poses, "dual, async_mapping", card,
              async_mapping=True, period_ms=period)
-    return launches
+    return launches, {"voc": voc, "frames": frames, "poses": poses,
+                      "ms": sync["ms"]}
 
 
 def loop_config():
@@ -1209,9 +1239,9 @@ class LoopProbe:
         return run
 
     def _correct_loop(self, kf, loop_kf, Scw, matched):
-        before = keyframe_accuracy(self.sys_, self.poses)[1]
+        before = keyframe_accuracy(self.sys_.map, self.poses)[1]
         self._correct(kf, loop_kf, Scw, matched)
-        after = keyframe_accuracy(self.sys_, self.poses)[1]
+        after = keyframe_accuracy(self.sys_.map, self.poses)[1]
         self.closings.append({"frame": kf.frame_id, "kid": kf.kid,
                               "loop_kid": loop_kf.kid, "ate_before": before,
                               "ate_after": after})
@@ -1260,7 +1290,7 @@ def phase_loop(device, card: str) -> int:
     gt = np.asarray([-poses[f][:3, :3].T @ poses[f][:3, 3] for f, _, _ in traj])
     ate = float(metrics.ate_rmse(est, gt, with_scale=True)) if len(traj) > 3 \
         else float("inf")
-    scale, kf_ate, _, span = keyframe_accuracy(sys_, poses) if m.n_keyframes > 3 \
+    scale, kf_ate, _, span = keyframe_accuracy(sys_.map, poses) if m.n_keyframes > 3 \
         else (float("nan"),) * 4
     n_lost = states.count("LOST")
     finite = all(np.isfinite(p.pos).all() for p in m.points.values())
@@ -1309,6 +1339,257 @@ def phase_loop(device, card: str) -> int:
     if problems:
         raise AssertionError("loop: " + "; ".join(problems))
     return launches
+
+
+def rig_yaml(cfg) -> str:
+    """`cfg`'s rig in the original's settings format (Dual-LenaCV.yaml):
+    intrinsics, distortion, quaternion and translation extrinsics, image
+    size, fps, RGB and the ORB settings."""
+    lines = ["%YAML:1.0", f"nCameras: {cfg.n_cameras}"]
+    keys = ("fx", "fy", "cx", "cy", "k1", "k2", "p1", "p2", "k3", "qw", "qx", "qy",
+            "qz", "tx", "ty", "tz")
+    for c, cam in enumerate(cfg.cameras):
+        values = (cam.fx, cam.fy, cam.cx, cam.cy, *cam.dist, *cam.q_sc, *cam.t_sc)
+        lines += [f"Camera{c}.{k}: {v!r}" for k, v in zip(keys, values, strict=True)]
+    cam = cfg.cameras[0]
+    o = cfg.orb
+    lines += [f"Camera.width: {cam.width}", f"Camera.height: {cam.height}",
+              f"Camera.fps: {cfg.fps!r}", f"Camera.RGB: {int(cfg.rgb)}",
+              f"ORBextractor.nFeatures: {o.n_features}",
+              f"ORBextractor.scaleFactor: {o.scale_factor!r}",
+              f"ORBextractor.nLevels: {o.n_levels}",
+              f"ORBextractor.iniThFAST: {o.ini_th_fast}",
+              f"ORBextractor.minThFAST: {o.min_th_fast}"]
+    return "\n".join(lines) + "\n"
+
+
+def yaml_fields(cfg) -> dict:
+    """What a settings file carries of a config."""
+    o = cfg.orb
+    return {"cameras": [(c.fx, c.fy, c.cx, c.cy, tuple(c.dist), tuple(c.q_sc),
+                         tuple(c.t_sc), c.width, c.height) for c in cfg.cameras],
+            "fps": cfg.fps, "rgb": cfg.rgb,
+            "orb": (o.n_features, o.scale_factor, o.n_levels, o.ini_th_fast,
+                    o.min_th_fast)}
+
+
+def write_joint_video(frames, path: str) -> None:
+    """u8 rig frames [2, H, W] -> one side-by-side MJPG video, the original's
+    joint input (dual_slam_video.cpp:68-86)."""
+    import cv2
+
+    ncam, h, w = frames[0].shape
+    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 30, (ncam * w, h))
+    if not wr.isOpened():
+        raise AssertionError(f"cv2 cannot write an MJPG video to {path}")
+    for f in frames:
+        wr.write(cv2.cvtColor(np.concatenate(list(f), axis=1), cv2.COLOR_GRAY2BGR))
+    wr.release()
+
+
+def frame_lines(path) -> list:
+    return [ln.split() for ln in path.read_text().strip().splitlines() if ln.strip()]
+
+
+def check_reload(out, cfg, voc, poses, label: str, card: str) -> dict:
+    """The run's map.npz against its text artifacts, the keyframe database
+    rebuilt from it, and the cloud tools on its points.  Returns the card's
+    and the CPU's fit_planes ms."""
+    from orbslam2_dualcam_tpu_torch import tools
+    from orbslam2_dualcam_tpu_torch.models.kfdb import KeyFrameDatabase
+    from orbslam2_dualcam_tpu_torch.utils import checkpoint
+
+    problems = []
+    m = checkpoint.load_map(str(out / "map.npz"))
+    klines, plines = frame_lines(out / "KeyFramePoseTcw.txt"), frame_lines(out / "MapPoint.txt")
+    if (len(klines), len(plines)) != (m.n_keyframes, m.n_points):
+        problems.append(f"map.npz holds {m.n_keyframes} keyframes and {m.n_points} "
+                        f"points, the text files {len(klines)} and {len(plines)}")
+    else:
+        P = np.asarray([m.points[int(r[3])].pos for r in plines], np.float64)
+        d_pts = float(np.abs(P - np.asarray([r[:3] for r in plines], np.float64)).max())
+        d_kfs = max(float(np.abs(
+            np.asarray(System._pose_line(m.keyframes[int(r[7])].T_cw).split(), np.float64)
+            - np.asarray(r[:7], np.float64)).max()) for r in klines)
+        if not (d_pts <= 1e-6 and d_kfs <= 1e-6):
+            problems.append(f"restored points differ from MapPoint.txt by {d_pts:.3g}, "
+                            f"keyframe poses from KeyFramePoseTcw.txt by {d_kfs:.3g}")
+        log(f"  {label}: map.npz restored: {m.n_keyframes} keyframes, {m.n_points} "
+            f"points; largest difference from MapPoint.txt {d_pts:.3g}, from "
+            f"KeyFramePoseTcw.txt {d_kfs:.3g} (printed to 7 decimals)")
+    db = KeyFrameDatabase(cfg.n_cameras, voc.n_words)
+    t0 = time.perf_counter()
+    checkpoint.rebuild_kfdb(m, db, voc, cfg.n_cameras)
+    t_db = 1e3 * (time.perf_counter() - t0)
+    n_q, missed = 0, []
+    for kid in sorted(m.keyframes):
+        for c in range(cfg.n_cameras):
+            q = db.bow[c].get(kid)
+            if q is None:
+                continue
+            n_q += 1
+            if kid not in db.detect_reloc_candidates(q.words.astype(np.int64), q, c, c, m):
+                missed.append((kid, c))
+    log(f"  {label}: rebuild_kfdb on the card's vocabulary ({voc.n_words} words) in "
+        f"{t_db:.3f} ms; {n_q} keyframe cameras queried with their own BoW vector, "
+        f"{n_q - len(missed)} found themselves among the candidates")
+    if n_q == 0 or missed:
+        problems.append(f"rebuild_kfdb: {n_q} queries, missed {missed[:8]}")
+    ply = out / "cloud.ply"
+    tools.main(["convert", str(out / "MapPoint.txt"), str(ply), "--voxel", "0.05"])
+    n_ply = int(next(ln for ln in ply.read_text().splitlines()
+                     if ln.startswith("element vertex")).split()[-1])
+    pts = tools.load_points_txt(str(out / "MapPoint.txt"))
+    if not 0 < n_ply <= len(pts):
+        problems.append(f"convert wrote {n_ply} vertices of {len(pts)} points")
+    tools.fit_planes(pts, device="cuda")          # warm: first launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = tools.fit_planes(pts)
+    torch.cuda.synchronize()
+    t_card = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    on_cpu = tools.fit_planes(pts, device="cpu")
+    t_cpu = 1e3 * (time.perf_counter() - t0)
+    diffs = []
+    for (n1, d1, i1), (n2, d2, i2) in zip(on_card, on_cpu):
+        sgn = float(np.sign(n1 @ n2)) or 1.0
+        diffs.append((float(np.abs(n1 - sgn * n2).max()), abs(len(i1) - len(i2))))
+    log(f"  {label} ({card}): convert --voxel 0.05 kept {n_ply} of {len(pts)} points; "
+        f"fit_planes (4 planes, 512 hypotheses a round, dist 0.05) on the card "
+        f"{t_card:.3f} ms, on the CPU {t_cpu:.3f} ms (host clock, the SVD refits on "
+        f"the host in both); planes {len(on_card)} and {len(on_cpu)}, inliers "
+        f"{[len(p[2]) for p in on_card]} and {[len(p[2]) for p in on_cpu]}, largest "
+        f"normal difference {max([d[0] for d in diffs], default=0.0):.3g}")
+    if not on_card or len(on_card) != len(on_cpu) or \
+            any(dn > 1e-3 or di > 1 for dn, di in diffs):
+        problems.append(f"fit_planes: card {[(p[0].round(4).tolist(), len(p[2])) for p in on_card]}, "
+                        f"CPU {[(p[0].round(4).tolist(), len(p[2])) for p in on_cpu]}")
+    if problems:
+        raise AssertionError(f"{label}: " + "; ".join(problems))
+    return {"fit_planes_ms": t_card, "fit_planes_cpu_ms": t_cpu}
+
+
+def phase_run(device, card: str, dual: dict | None = None) -> dict:
+    """Phase 10: the user's run path.  A settings file for phase 8's rig,
+    phase 8's vocabulary saved as .npz and the first RUN_FRAMES frames of
+    its walk as one joint MJPG video, then (a) the CLI as a user runs it,
+    `python3 -m orbslam2_dualcam_tpu_torch.run`, in a child process, and (b)
+    the same video through the CLI's own pieces in this process (the YAML
+    loader, the .npz reader, System, the decode and run.track_stream, the
+    artifact writers), where K1's launches are counted and each track call
+    timed.  Both runs' artifacts are gated; the child's map is restored and
+    its database rebuilt, and the cloud tools run on its points.  Without
+    `dual` (phase 10 alone) the vocabulary and the walk are made here as
+    phase 8 makes them.  Returns K1's launches over the counted run and
+    what was measured."""
+    import pathlib
+    import tempfile
+
+    import cv2
+
+    from orbslam2_dualcam_tpu_torch import run
+    from orbslam2_dualcam_tpu_torch.utils import checkpoint
+    from orbslam2_dualcam_tpu_torch.utils.yaml_config import load_rig_yaml
+
+    want = dual_config()
+    if dual is None:
+        voc, frames, poses = dual_scene(want, device)
+        dual = {"voc": voc, "frames": frames, "poses": poses, "ms": None}
+    frames, poses = dual["frames"][:RUN_FRAMES], dual["poses"]
+    problems = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as tmp:
+        tmp = pathlib.Path(tmp)
+        settings, vocab, video = tmp / "rig.yaml", tmp / "voc.npz", tmp / "walk.avi"
+        settings.write_text(rig_yaml(want))
+        cfg = load_rig_yaml(str(settings))
+        if yaml_fields(cfg) != yaml_fields(want):
+            raise AssertionError(f"load_rig_yaml: {yaml_fields(cfg)} != {yaml_fields(want)}")
+        bow.save_vocabulary(dual["voc"], str(vocab))
+        t0 = time.perf_counter()
+        write_joint_video(frames, str(video))
+        log(f"  run path: settings file of phase 8's rig read back equal in every "
+            f"field it carries (the rest is SystemConfig's defaults, so the cross-"
+            f"camera schedule is the original's 30 / 50 / 5); vocabulary "
+            f"{vocab.stat().st_size} B; {len(frames)} joint {H}x{2 * W} frames to MJPG "
+            f"({video.stat().st_size} B) in {time.perf_counter() - t0:.1f} s")
+
+        # (a) the CLI in a child process, as a user runs it
+        out_cli = tmp / "out_cli"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "orbslam2_dualcam_tpu_torch.run", "--settings",
+             str(settings), "--video", str(video), "--vocab", str(vocab), "--out",
+             str(out_cli), "--max-frames", str(RUN_FRAMES)],
+            capture_output=True, text=True, timeout=RUN_CLI_TIMEOUT_S,
+            cwd=pathlib.Path(__file__).resolve().parent)
+        t_cli = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the run CLI exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        log(f"  run CLI ({card}): exit 0 in {t_cli:.1f} s (interpreter start, "
+            f"kernel library load, {RUN_FRAMES} frames, artifacts); its output: "
+            + " | ".join(proc.stdout.strip().splitlines()[-3:]))
+        if f"{RUN_FRAMES} frames; artifacts in" not in proc.stdout:
+            problems.append(f"the CLI did not report {RUN_FRAMES} frames")
+
+        # (b) the same video through the CLI's pieces, counted and timed
+        out_run = tmp / "out_run"
+        voc = bow.load_vocabulary(str(vocab))
+        sys_ = System(cfg, voc=voc)
+        require_card(sys_)
+        cap = cv2.VideoCapture(str(video))
+        torch.cuda.synchronize()
+        k1.fast_nms.launches = 0
+        n = run.track_stream(sys_, run.video_frames(cap), cfg.n_cameras, cfg.fps,
+                             RUN_FRAMES)
+        torch.cuda.synchronize()
+        launches = k1.fast_nms.launches
+        cap.release()
+        sys_.shutdown()
+        run.write_artifacts(sys_, str(out_run))
+        ms = [1e3 * (b - a) for a, b in sys_.frame_intervals]
+        if launches != n or n != RUN_FRAMES:
+            problems.append(f"K1 launched {launches} times over {n} track calls "
+                            f"({RUN_FRAMES} frames)")
+        for out, label in ((out_cli, "run CLI"), (out_run, "run in process")):
+            missing = [f for f in ("FramePoseTcw.txt", "KeyFramePoseTcw.txt",
+                                   "MapPoint.txt", "map.npz") if not (out / f).exists()]
+            if missing:
+                raise AssertionError(f"{label}: no {missing}")
+            rows = frame_lines(out / "FramePoseTcw.txt")
+            fids = [int(r[7]) for r in rows]
+            m = checkpoint.load_map(str(out / "map.npz"))
+            _, ate, _, span = keyframe_accuracy(m, poses) if m.n_keyframes > 3 \
+                else (float("nan"), float("inf"), float("nan"), 1.0)
+            log(f"  {label} ({card}): {len(rows)} frame lines (frames {fids[0] if fids else None}"
+                f"-{fids[-1] if fids else None}), {m.n_keyframes} keyframes, "
+                f"{m.n_points} points; keyframe Sim3 ATE {ate:.4f} m on a span of "
+                f"{span:.3f} m ({ate / span:.4f}; phase 8's band < {DUAL_MAX_ATE_OF_SPAN})")
+            if fids != sorted(set(fids)) or not fids or fids[-1] >= RUN_FRAMES or \
+                    len(fids) < RUN_FRAMES - 5:
+                problems.append(f"{label}: frame lines {fids}")
+            if not ate < DUAL_MAX_ATE_OF_SPAN * span:
+                problems.append(f"{label}: keyframe Sim3 ATE {ate:.4f} m of a span of "
+                                f"{span:.3f} m")
+        traj = [t[0] for t in sys_.tracker.trajectory]
+        if [int(r[7]) for r in frame_lines(out_run / "FramePoseTcw.txt")] != traj:
+            problems.append("run in process: FramePoseTcw.txt is not one line per "
+                            "tracked frame")
+        tracked = [t for k, t in enumerate(ms) if k >= 3]
+        p8 = dual["ms"][3:RUN_FRAMES] if dual["ms"] else [float("nan")]
+        log(f"  run in process ({card}): System.track over the decoded video, "
+            f"ms/call (host clock of System.frame_intervals) median "
+            f"{np.median(tracked):.3f} (min {min(tracked):.3f}, max {max(tracked):.3f}) "
+            f"over calls 3-{RUN_FRAMES - 1}; phase 8's synchronous walk over the same "
+            f"frames (host clock between synchronizations) median {np.median(p8):.3f} "
+            f"(min {min(p8):.3f}, max {max(p8):.3f}); last state "
+            f"{sys_.tracker.state}; events "
+            f"{[e for e in sys_.tracker.events if not e.startswith('KF@')][:12]}")
+        if problems:
+            raise AssertionError("run path: " + "; ".join(problems))
+        tools_ms = check_reload(out_cli, cfg, voc, poses, "run CLI's map", card)
+    return {"launches": launches, "ms": tracked, "cli_s": t_cli, **tools_ms}
 
 
 def profile_system(device, card: str, n_warm: int = 8, n_prof: int = 5) -> None:
@@ -1404,14 +1685,14 @@ def main() -> int:
     # 1. card
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/9] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/10] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {name}, count {torch.cuda.device_count()}")
 
     # 2. build
     t0 = time.perf_counter()
     built = not _build.library_path().exists()
     _build.load_library()
-    log(f"[2/9] build: {'compiled' if built else 'cached'} "
+    log(f"[2/10] build: {'compiled' if built else 'cached'} "
         f"{_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
@@ -1419,14 +1700,14 @@ def main() -> int:
 
     # 3. K1 against its plain version
     k1_err = phase_k1(device)
-    log(f"[3/9] K1 agrees with its plain version at all level shapes, one level "
+    log(f"[3/10] K1 agrees with its plain version at all level shapes, one level "
         f"per launch and the pyramid in one launch (max |err| {k1_err})")
 
     # 4. the one-frame path at full width
     cfg = dual_default()
     t0 = time.perf_counter()
     scene = Scene(cfg, device)
-    log(f"[4/9] scene: {N_FRAMES} frames 2x{H}x{W}, {scene.n_feats} features/camera, "
+    log(f"[4/10] scene: {N_FRAMES} frames 2x{H}x{W}, {scene.n_feats} features/camera, "
         f"{int(scene.store.valid.sum())}/{scene.cap} store slots seeded, vocabulary "
         f"k=10 depth 6 ({sum(c.numel() * 4 for c in scene.voc.centroids) / 1e6:.1f} MB) "
         f"in {time.perf_counter() - t0:.1f} s")
@@ -1445,7 +1726,7 @@ def main() -> int:
     if batch_launches != DEPTH:
         raise AssertionError(f"K1 launched {batch_launches} times over a batch of "
                              f"{DEPTH} frames, expected 1 per frame")
-    log(f"[5/9] batched path: {DEPTH} frames equal the one-by-one run exactly; "
+    log(f"[5/10] batched path: {DEPTH} frames equal the one-by-one run exactly; "
         f"K1 launches {batch_launches} ({batch_launches / DEPTH:g} per frame)")
 
     # 6. timing
@@ -1453,7 +1734,7 @@ def main() -> int:
     t_span, spans = run_chain_with_spans(scene, device)
     t_rand = time_random(scene, device)
     med = float(np.median(t_rend))
-    log(f"[6/9] step ms/frame ({card}): rendered chain median {med:.3f} "
+    log(f"[6/10] step ms/frame ({card}): rendered chain median {med:.3f} "
         f"(min {min(t_rend):.3f}, max {max(t_rend):.3f}); random frames "
         f"(widened retry) median {np.median(t_rand):.3f} "
         f"(max {max(t_rand):.3f})")
@@ -1490,7 +1771,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sys_launches = phase_system(device, card)
-    log(f"[7/9] system: System.track initialized, tracked, mapped and bundle-"
+    log(f"[7/10] system: System.track initialized, tracked, mapped and bundle-"
         f"adjusted the orbit synchronously and with async_mapping; K1 launches "
         f"{sys_launches} over {SYS_FRAMES} track calls (1 per call); peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB; phase "
@@ -1500,8 +1781,8 @@ def main() -> int:
     # 8. the dual bootstrap at full width
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    dual_launches = phase_dual(device, card)
-    log(f"[8/9] dual bootstrap: System(cfg, voc).track walked out, turned and came "
+    dual_launches, dual = phase_dual(device, card)
+    log(f"[8/10] dual bootstrap: System(cfg, voc).track walked out, turned and came "
         f"back, relocalized across cameras, scaled the map by the baseline and "
         f"reached FULL, synchronously and with async_mapping, and relocalized by "
         f"vocabulary after a forced loss; K1 launches {dual_launches} (1 per track "
@@ -1514,17 +1795,33 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     loop_launches = phase_loop(device, card)
-    log(f"[9/9] loop: System(cfg, voc, enable_loop_closing=True).track went past a "
+    log(f"[9/10] loop: System(cfg, voc, enable_loop_closing=True).track went past a "
         f"full turn, detected the loop, computed and optimized its Sim3, corrected "
         f"it and ran the global BA; K1 launches {loop_launches} (1 per track call); "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB; "
         f"phase {time.perf_counter() - t0:.0f} s, total "
         f"{time.perf_counter() - t_start:.0f} s")
 
+    # 10. the run path: settings file, vocabulary file, video, the CLI,
+    # the map archive, the tools
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ran = phase_run(device, card, dual)
+    del dual
+    log(f"[10/10] run path: python3 -m orbslam2_dualcam_tpu_torch.run tracked "
+        f"{RUN_FRAMES} frames of a joint MJPG video with a settings file and a "
+        f"vocabulary file and wrote its four artifacts; the map restored, its "
+        f"database rebuilt, the cloud tools on its points; K1 launches "
+        f"{ran['launches']} over the counted run's {RUN_FRAMES} track calls (1 per "
+        f"call); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB; phase "
+        f"{time.perf_counter() - t0:.0f} s, total "
+        f"{time.perf_counter() - t_start:.0f} s ({card})")
+
     # launches: the one-frame chain's, the batch's, the synchronous mono
-    # system run's, the synchronous dual walk's and the loop run's, each
-    # counted from 0 just before its path ran; times: the pyramid launch,
-    # as every path calls it, on the main path's own data
+    # system run's, the synchronous dual walk's, the loop run's and the run
+    # path's, each counted from 0 just before its path ran; times: the
+    # pyramid launch, as every path calls it, on the main path's own data
     print(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda",
         "source": "orbslam2_dualcam_tpu_torch/csrc/fast_nms.cu",
@@ -1533,6 +1830,7 @@ def main() -> int:
         "launches_system_path": sys_launches,
         "launches_dual_path": dual_launches,
         "launches_loop_path": loop_launches,
+        "launches_run_path": ran["launches"],
         "max_abs_err": k1_err,
         "ms": k["pyramid_device_ms"], "per_call_ms": k["pyramid_call_ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

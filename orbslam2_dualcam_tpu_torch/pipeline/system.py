@@ -16,8 +16,9 @@ with the tracker's host work and the reverse.
 
 With a vocabulary the system relocalizes by it, runs the dual-camera
 bootstrap to a metric map and, unless `enable_loop_closing=False`, closes
-loops (detection, Sim3, correction, global BA).  The viewer, a device mesh
-and deferred tracking are not ported yet and raise NotImplementedError.
+loops (detection, Sim3, correction, global BA).  `viewer=True` serves the
+live viewer (viz/live.py) over HTTP.  A device mesh and deferred tracking
+are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -56,12 +57,18 @@ class System:
         keyframe database, relocalizes by it, with two cameras runs the
         cross-camera bootstrap and, with `enable_loop_closing`, closes
         loops; without one `enable_loop_closing` has no effect, as in the
-        reference.  `mesh`, `viewer=True` and `deferred_tracking=True` are
-        not ported yet and raise NotImplementedError."""
+        reference.
+
+        `viewer=True` starts the live HTTP viewer (viz/live.py, the
+        original's Viewer thread, System.cc:137); `viewer_port=0` picks a
+        free port, printed at startup and available as
+        `system.viewer.port`.  `track` redraws it from host data after each
+        frame and `shutdown` closes it.
+
+        `mesh` and `deferred_tracking=True` are not ported yet and raise
+        NotImplementedError."""
         if mesh is not None:
             raise _waits("distributed-BA", "System with a device mesh")
-        if viewer:
-            raise _waits("surface (CLI, tools, viewer)", "The live viewer")
         if deferred_tracking:
             raise _waits("deferred-tracking", "System(deferred_tracking=True)")
         self.cfg = cfg
@@ -108,6 +115,12 @@ class System:
             self.tracker.mapper_busy = \
                 lambda: self._kf_queue.qsize() >= 2
         self.viewer = None
+        if viewer:
+            from orbslam2_dualcam_tpu_torch.viz.live import LiveViewer
+            self.viewer = LiveViewer(port=viewer_port)
+            # the viewer draws host arrays: one readback of the rig here
+            self._T_sc_host = self.rig.T_sc.detach().cpu().numpy()
+            print(f"# live viewer: http://localhost:{self.viewer.port}/")
 
     # ------------------------------------------------------------------
     def track(self, images: np.ndarray, timestamp: float) -> str:
@@ -125,6 +138,11 @@ class System:
             return self.tracker.process(images, timestamp)
         finally:
             self.frame_intervals.append((t0, _time.monotonic()))
+            if self.viewer is not None:
+                self.viewer.update(
+                    images, self.tracker.last, self.tracker.state,
+                    self.map, self._T_sc_host,
+                    reloc_T_cw=self.tracker.last_reloc_cam_pose)
 
     def _mapping_loop(self) -> None:
         while not self._stop.is_set():
@@ -137,6 +155,9 @@ class System:
 
     def shutdown(self) -> None:
         self.tracker.flush()
+        if self.viewer is not None:
+            self.viewer.close()
+            self.viewer = None
         if self._async:
             while not self._kf_queue.empty():
                 import time

@@ -19,6 +19,8 @@ from orbslam2_dualcam_tpu_torch.utils.convert import (ba_problem_from_numpy,
 
 from torch_parity import t
 
+torch.set_num_threads(1)
+
 K_PAD, M_PAD, E_PAD = 8, 256, 1024
 
 

@@ -13,6 +13,8 @@ from orbslam2_dualcam_tpu_torch.utils import synthetic
 
 from torch_parity import small_K, t
 
+torch.set_num_threads(1)
+
 TOL = 1e-5
 
 

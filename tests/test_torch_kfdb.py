@@ -6,6 +6,7 @@ and `kfdb_from_reference` carries a database across."""
 
 import numpy as np
 import pytest
+import torch
 
 from orbslam2_dualcam_tpu.models import kfdb as ref_kfdb
 from orbslam2_dualcam_tpu.models import map as ref_map
@@ -17,6 +18,8 @@ from orbslam2_dualcam_tpu_torch.utils.convert import (kfdb_from_reference,
 from orbslam2_dualcam_tpu_torch.vocab import bow
 
 from torch_parity import random_desc, scripted_map
+
+torch.set_num_threads(1)
 
 N_WORDS = 64
 

@@ -28,6 +28,8 @@ from torch_parity import (assert_snapshots_equal, map_snapshot, random_desc,
                           rendered_frame,
                           scripted_cfg, scripted_map, t)
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def setup():

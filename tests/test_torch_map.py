@@ -5,6 +5,7 @@ state, exactly."""
 
 import numpy as np
 import pytest
+import torch
 
 from orbslam2_dualcam_tpu.models import map as ref_map
 from orbslam2_dualcam_tpu.utils import metrics as ref_metrics
@@ -15,6 +16,8 @@ from orbslam2_dualcam_tpu_torch.utils import metrics, profiling, synthetic
 from orbslam2_dualcam_tpu_torch.utils.convert import map_from_reference
 
 from torch_parity import assert_snapshots_equal, map_snapshot, scripted_map
+
+torch.set_num_threads(1)
 
 
 def _script(mod, seed):

@@ -14,6 +14,8 @@ from test_orbvoc import (_make_ragged_tree, _reference_transform, _write_binary,
                          _write_text)
 from torch_parity import t
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def ragged(tmp_path):

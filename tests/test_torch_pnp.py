@@ -20,6 +20,8 @@ from orbslam2_dualcam_tpu_torch.ops import ransac
 
 from torch_parity import t
 
+torch.set_num_threads(1)
+
 K = np.array([[500.0, 0, 320], [0, 500, 240], [0, 0, 1]], np.float32)
 
 

@@ -21,6 +21,8 @@ from orbslam2_dualcam_tpu_torch.optim import sim3_opt
 
 from torch_parity import t
 
+torch.set_num_threads(1)
+
 K = np.array([[300.0, 0, 160], [0, 300, 120], [0, 0, 1]], np.float32)
 
 

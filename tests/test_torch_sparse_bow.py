@@ -14,6 +14,8 @@ from orbslam2_dualcam_tpu_torch.vocab import bow
 
 from torch_parity import random_desc, t
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def vocs():

@@ -1,11 +1,12 @@
 """The port's monocular SLAM system on the CPU, alone, at the size of
 tests/test_mono_slam.py::small_cfg (one 320x240 camera, 400 features, 4
-levels) and on that file's sequences, held to that file's gates:
-initialization, tracking, keyframes, local mapping, local BA, the savers,
-`async_mapping=True`, and the branches that are not ported yet (with
-those that have been since).  The
-abrupt turn, the host-stepped path, `reset()` and the localization mode are
-in tests/test_torch_system_modes.py.
+levels): the configuration and the frame loop of the system tests, and the
+branches that are not ported yet (with those that have been since).  The
+orbit runs under that file's gates (initialization, tracking, keyframes,
+local mapping, local BA, the savers, `async_mapping=True`) are in
+tests/test_torch_system_orbit.py; the abrupt turn and the host-stepped path
+in tests/test_torch_system_modes.py; `reset()` and the localization mode in
+tests/test_torch_system_reset.py.
 
 The images are the reference's renderer's (the fixture's own); nothing else
 of the JAX package runs here.  The RANSAC seed is cfg.vocab.seed = 0, not
@@ -14,7 +15,6 @@ whose stream is not JAX's, and the run is sensitive to the draw (see
 ROADMAP.md, Queue 3)."""
 
 import dataclasses
-import threading
 import time
 
 import numpy as np
@@ -27,10 +27,11 @@ from orbslam2_dualcam_tpu_torch.models.map import Map
 from orbslam2_dualcam_tpu_torch.ops.camera import make_rig
 from orbslam2_dualcam_tpu_torch.pipeline.system import System
 from orbslam2_dualcam_tpu_torch.pipeline.tracking import Tracker
-from orbslam2_dualcam_tpu_torch.utils import metrics
 from orbslam2_dualcam_tpu_torch.utils.convert import config_from_reference
 
 from torch_parity import scripted_cfg
+
+torch.set_num_threads(1)
 
 
 def small_cfg(seed: int = 0):
@@ -65,73 +66,6 @@ def _orbit(async_mapping=False):
     return sys_, poses, states
 
 
-@pytest.fixture(scope="module")
-def mono_run():
-    return _orbit()
-
-
-def _check_map_gates(sys_, poses, states):
-    """The gates of tests/test_mono_slam.py."""
-    ev = sys_.tracker.events
-    assert states[-1] == "OK", (states, ev)
-    assert "OK" in states[:12], ev
-    assert sum(1 for s in states if s == "LOST") <= 3, (states, ev)
-    assert sys_.map.n_keyframes >= 4, ev
-    assert sys_.map.n_points > 150
-    assert sys_.mapper.n_triangulated > 50
-    traj = sys_.tracker.composed_trajectory()
-    assert len(traj) > 30
-    est = metrics.trajectory_positions(traj)
-    gt = np.asarray([-poses[f][:3, :3].T @ poses[f][:3, 3]
-                     for f in [t[0] for t in traj]])
-    ate = metrics.ate_rmse(est, gt, with_scale=True)
-    assert ate < 0.30, f"ATE {ate:.4f} m; events={ev}"
-
-
-def test_orbit_meets_the_mono_slam_gates(mono_run):
-    sys_, poses, states = mono_run
-    _check_map_gates(sys_, poses, states)
-    tr = sys_.tracker
-    assert tr.n_fused_frames >= 1
-    assert tr.n_fused_frames + tr.n_stepped_frames == \
-        sum(1 for s in states[states.index("OK") + 1:] if s == "OK")
-    # at least one local BA ran, on a window of several keyframes
-    assert sys_.mapper.ba_log and max(b[1] for b in sys_.mapper.ba_log) >= 4
-    assert all(np.isfinite(b[4]) for b in sys_.mapper.ba_log)
-    assert len(tr.two_view_ms) >= 1
-    assert {"fused", "extract", "initialize", "track", "store_refresh"} <= \
-        set(tr.timer.samples)
-    assert {"triangulate", "fuse", "local_ba"} <= set(sys_.mapper.timer.samples)
-
-
-def test_savers(mono_run, tmp_path):
-    sys_, _, _ = mono_run
-    fp, kp, mp = (tmp_path / n for n in ("frames.txt", "kfs.txt", "map.txt"))
-    sys_.save_frame_trajectory(str(fp))
-    sys_.save_keyframe_trajectory(str(kp))
-    sys_.save_map_points(str(mp))
-    lines = fp.read_text().strip().splitlines()
-    assert len(lines) == len(sys_.tracker.trajectory)
-    assert len(lines[0].split()) == 8      # x y z qx qy qz qw id
-    q = np.asarray(lines[5].split()[3:7], float)
-    assert abs(np.linalg.norm(q) - 1.0) < 1e-4
-    klines = kp.read_text().strip().splitlines()
-    assert len(klines) == sys_.map.n_keyframes
-    assert len(klines[0].split()) == 8
-    mlines = mp.read_text().strip().splitlines()
-    assert len(mlines) == sys_.map.n_points and len(mlines[0].split()) == 4
-
-
-def test_async_mapping_meets_the_map_gates():
-    before = threading.active_count()
-    sys_, poses, states = _orbit(async_mapping=True)
-    assert not sys_._mapper_thread.is_alive()
-    assert threading.active_count() == before
-    assert sys_._kf_queue.empty()
-    _check_map_gates(sys_, poses, states)
-    assert sys_.mapper.ba_log
-
-
 def _tiny_voc():
     from orbslam2_dualcam_tpu_torch.vocab import bow
     desc = np.random.default_rng(0).integers(
@@ -143,19 +77,29 @@ def _tiny_voc():
     ("vocabulary", dict(voc="tiny", enable_loop_closing=False), None),
     ("loop closing", dict(voc="tiny", enable_loop_closing=True), None),
     ("deferred", dict(deferred_tracking=True), "deferred-tracking slice"),
-    ("viewer", dict(viewer=True), "surface"),
+    # ported with the surface: builds (the id keeps the slice's name)
+    pytest.param("viewer", dict(viewer=True), None,
+                 id="viewer-kwargs3-surface"),
     ("mesh", dict(mesh=object()), "distributed-BA slice"),
 ])
 def test_system_stubs_raise_and_name_their_slice(what, kwargs, names):
     """What is not ported raises and names its slice; a vocabulary, with
     loop closing or without, is ported, and builds the keyframe database
-    (and the loop closer, which the mapper calls)."""
+    (and the loop closer, which the mapper calls); the viewer is ported, and
+    serves until shutdown."""
     kw = dict(voc=None, enable_loop_closing=False, device="cpu")
     kw.update(kwargs)
     if kw["voc"] == "tiny":
         kw["voc"] = _tiny_voc()
     if names is None:
         sys_ = System(small_cfg(), **kw)
+        if kw.get("viewer"):
+            try:
+                assert sys_.viewer is not None and sys_.viewer.port > 0
+            finally:
+                sys_.shutdown()
+            assert sys_.viewer is None
+            return
         assert sys_.kfdb is not None and sys_.tracker.kfdb is sys_.kfdb
         assert sys_.mapper.kfdb is sys_.kfdb
         assert sys_.kfdb.erase in sys_.map.on_erase_keyframe

@@ -28,6 +28,8 @@ from orbslam2_dualcam_tpu_torch.utils.convert import config_from_reference
 
 from torch_parity import scripted_cfg
 
+torch.set_num_threads(1)
+
 
 def _reference_sampler(seed: int):
     """A `two_view_sampler` that draws what the reference's Tracker draws:

@@ -18,6 +18,8 @@ from orbslam2_dualcam_tpu_torch.utils import synthetic
 
 from torch_parity import small_K, t
 
+torch.set_num_threads(1)
+
 
 def _two_views(seed, planar, n=260, outliers=0.1):
     rng = np.random.default_rng(seed)
