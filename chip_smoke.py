@@ -13,14 +13,16 @@ form (make_track_batch_fn), the monocular SLAM system
 (pipeline.system.System.track without a vocabulary), the dual-camera
 system with a vocabulary (relocalization, the cross-camera bootstrap to a
 metric map), the system with loop closing (detection, Sim3 RANSAC and
-optimizer, correction, global BA) and the video CLI with its settings,
-vocabulary and map files and the cloud tools, at the reference's operating point:
+optimizer, correction, global BA), the video CLI with its settings,
+vocabulary and map files and the cloud tools, and the deployment
+configuration (deferred batched tracking with the mapping thread), at the reference's operating point:
 2 x 640 x 480 frames, 1300 features per camera, 8 levels x 1.2, a 2048-slot
 map store and, for the step, a random vocabulary tree of ORBvoc's shape
 (k=10, depth 6).  Phases, each raising on failure:
 
   1. card: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: the CUDA kernels from csrc/ with nvcc (sm_90a);
+  2. build: the CUDA kernels from csrc/ with nvcc (sm_90a), and the C++
+     postings index (native/invfile.cpp) with g++;
   3. K1 (fast_nms) against its plain torch version on the card: the
      one-level entry at all 8 main-path level shapes for two cameras and a
      non-tile-aligned shape, and the pyramid entry (one launch for all 8
@@ -106,7 +108,32 @@ map store and, for the step, a random vocabulary tree of ORBvoc's shape
      vocabulary (each keyframe finds itself by its own BoW vector), tools
      convert --voxel 0.05, and fit_planes on the card and on the CPU (same
      planes, normals within 1e-3, inlier counts within 1).  Prints ms per
-     track call beside phase 8's over the same frames, and fit_planes' ms.
+     track call beside phase 8's over the same frames, and fit_planes' ms;
+ 11. the deployment configuration, bench.py's bench_end_to_end in the port:
+     first utils.device.Readback on the card (its wait() returns while a
+     sleep kernel queued after it runs, and a Python thread runs during
+     the wait); then System(cfg, voc, enable_loop_closing=False,
+     async_mapping=True, deferred_tracking=True) with dual_default() at
+     images_u8=True and pipeline_depth 3, the vocabulary (k=8, depth 3,
+     seed 7) trained on 20,000 random descriptors of rng(1), over the
+     90-frame 1.2 pi orbit of radius 1.5 m in that rng's box room (u8 frames
+     rendered untimed), each call timed on the host clock with no
+     synchronization around it, gated as tests/test_deferred.py gates
+     deferred tracking with the mapping thread: no DROPFRAME@ or LOST@,
+     >= 85 frames in the trajectory after shutdown(), Sim3 ATE under
+     0.35 m (THIN@ counted: with the mapper on its own thread the store a
+     batch is dispatched against lags the map, and stage 1 of a batch's
+     first frame thins now and then); then the same deferred pipeline with
+     synchronous mapping, gated as that file gates the deferred mode alone
+     (no DROPFRAME@, THIN@ or LOST@, the trajectory, the ATE) over the
+     first 45 frames; every run
+     one K1 launch per track call and one fused_get wait per dispatched
+     batch.  Prints bench.py's fields (mean, p90 and median ms per call
+     over calls 20-89, fps from the mean, the stage medians), the same 90
+     frames synchronously (mean, ATE), a lag-1 run (pipeline_depth 1,
+     async) over the first 30 frames, and peak memory.  Phase 11 alone: python3 -c "import torch, chip_smoke as c;
+     c._build.load_library(); c.phase_deployment(torch.device('cuda', 0),
+     c.card_line())".
 
 The last line of standard output is a JSON object with "ok": true; it is
 printed only when every phase passed.  There is no CPU path: without a
@@ -119,12 +146,14 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
 from orbslam2_dualcam_tpu_torch import _build, dual_default
+from orbslam2_dualcam_tpu_torch.native import invfile
 from orbslam2_dualcam_tpu_torch.ops import fast_nms as k1
 from orbslam2_dualcam_tpu_torch.ops import ransac
 from orbslam2_dualcam_tpu_torch.ops.camera import make_rig
@@ -135,6 +164,7 @@ from orbslam2_dualcam_tpu_torch.pipeline import frontend
 from orbslam2_dualcam_tpu_torch.pipeline.system import System
 from orbslam2_dualcam_tpu_torch.utils import metrics, synthetic
 from orbslam2_dualcam_tpu_torch.utils.convert import desc_to_numpy, desc_to_torch
+from orbslam2_dualcam_tpu_torch.utils.device import Readback
 from orbslam2_dualcam_tpu_torch.vocab import bow
 from orbslam2_dualcam_tpu_torch.vocab.bow import Vocabulary
 
@@ -199,6 +229,19 @@ LOOP_MAX_ATE_M = 0.8
 # has no matplotlib, so the live viewer's drawing is not driven there)
 RUN_FRAMES = 40
 RUN_CLI_TIMEOUT_S = 600
+
+# phase 11, the deployment configuration of bench.py's bench_end_to_end:
+# frames of the orbit (1.2 pi, radius 1.5 m), warm-up frames left out of
+# the mean, frames of the lag-1 run, and the gates of tests/test_deferred.py
+DEPLOY_FRAMES = 90
+DEPLOY_WARMUP = 20
+DEPLOY_LAG1_FRAMES = 30
+DEPLOY_MAX_MISSING = 5              # frames a run's trajectory may lack
+# frames of the deferred run with synchronous mapping (it covers frame 22,
+# where the runs with the mapping thread first thin; cut to keep the whole
+# script well inside its time limit)
+DEPLOY_SYNCMAP_FRAMES = 45
+DEPLOY_MAX_ATE_M = 0.35
 
 
 def log(msg: str) -> None:
@@ -1592,6 +1635,211 @@ def phase_run(device, card: str, dual: dict | None = None) -> dict:
     return {"launches": launches, "ms": tracked, "cli_s": t_cli, **tools_ms}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the deployment configuration
+# ---------------------------------------------------------------------------
+
+def deployment_scene(device):
+    """bench.py's bench_end_to_end scene: the box room and the 90-frame orbit
+    of rng(1), the vocabulary (branching 8, depth 3, seed 7) trained on the
+    20,000 random descriptors that rng draws next, and dual_default() with
+    u8 frames (pipeline_depth is 3 there).  The frames are rendered untimed,
+    as u8.  Returns (cfg, voc, frames, poses)."""
+    import dataclasses
+    cfg = dual_default()
+    cfg = dataclasses.replace(cfg, tracker=dataclasses.replace(cfg.tracker,
+                                                               images_u8=True))
+    rng = np.random.default_rng(1)
+    # the reference's make_box_world ignores bench.py's n_points=6000
+    world = synthetic.make_box_world(rng, half=6.0)
+    poses = synthetic.orbit_trajectory(DEPLOY_FRAMES, radius=1.5,
+                                       total_angle=1.2 * math.pi)
+    t0 = time.perf_counter()
+    voc = bow.train_vocabulary(
+        rng.integers(0, 2 ** 32, (20000, 8), dtype=np.uint32),
+        branching=8, depth=3, seed=7, device=device)
+    log(f"  vocabulary: k=8, depth 3, {voc.n_words} words, trained on 20000 random "
+        f"descriptors in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    render = u8_renderer(world, make_rig(cfg))
+    frames = [render(T) for T in poses]
+    log(f"  rendered {len(frames)} frames 2x{H}x{W} (u8) in "
+        f"{time.perf_counter() - t0:.1f} s; pipeline_depth "
+        f"{cfg.tracker.pipeline_depth}, images_u8 {cfg.tracker.images_u8}")
+    return cfg, voc, frames, poses
+
+
+def run_deployment(cfg, voc, frames, poses, label: str, card: str, deferred: bool,
+                   async_mapping: bool, gate_kinds: tuple = ()) -> dict:
+    """System(cfg, voc, enable_loop_closing=False) over `frames`, each
+    track call timed on the host clock with no synchronization of the card
+    around it (bench.py's timing: a deferred call that only buffers a frame
+    takes well under a millisecond, the call that dispatches a batch pays
+    for it), then shutdown() (which flushes the pipeline).  K1 is counted
+    from 0 over the run.  With `gate_kinds`, tests/test_deferred.py's
+    gates: no event of those kinds, at most DEPLOY_MAX_MISSING frames
+    missing from the trajectory, ATE under DEPLOY_MAX_ATE_M."""
+    sys_ = System(cfg, voc=voc, enable_loop_closing=False,
+                  async_mapping=async_mapping, deferred_tracking=deferred)
+    require_card(sys_)
+    tr = sys_.tracker
+    if tr.deferred != deferred:
+        raise AssertionError(f"{label}: tracker.deferred is {tr.deferred}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.fast_nms.launches = 0
+    states, ms = [], []
+    for k, img in enumerate(frames):
+        t0 = time.perf_counter()
+        states.append(sys_.track(img, k / 30.0))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    sys_.shutdown()
+    torch.cuda.synchronize()
+    shutdown_ms = 1e3 * (time.perf_counter() - t0)
+    launches = k1.fast_nms.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    if async_mapping and sys_._mapper_thread.is_alive():
+        raise AssertionError(f"{label}: the mapping thread did not stop")
+    est = {fid: T for fid, _, _, _, T in tr.trajectory}
+    common = sorted(set(est) & set(range(len(frames))))
+    if len(common) > 3:
+        E = np.stack([np.linalg.inv(est[i])[:3, 3] for i in common])
+        G = np.stack([np.linalg.inv(poses[i])[:3, 3] for i in common])
+        ate = float(metrics.ate_rmse(E, G))
+    else:
+        ate = float("inf")
+    warm = min(DEPLOY_WARMUP, len(ms) - 6)
+    tail = np.asarray(ms[warm:])
+    stages = {k: float(np.median(v[warm // 2:])) * 1e3
+              for k, v in tr.timer.samples.items() if len(v) > warm // 2}
+    n_disp, n_get = (len(tr.timer.samples.get(k, ())) for k in
+                     ("fused_dispatch", "fused_get"))
+    n_kind = {k: sum(e.startswith(k) for e in tr.events)
+              for k in ("DROPFRAME@", "THIN@", "RESCUE@", "LOST@")}
+    bad = [e for e in tr.events if gate_kinds and e.startswith(gate_kinds)]
+    r = {"mean": float(tail.mean()), "p90": float(np.percentile(tail, 90)),
+         "median": float(np.median(tail)), "frames": len(tail), "warm": warm,
+         "ate": ate, "n_traj": len(common), "launches": launches,
+         "dispatches": n_disp, "gets": n_get, "peak": peak,
+         "shutdown_ms": shutdown_ms, "events": n_kind}
+    log(f"  {label} ({card}): ms per track call over calls {warm}-{len(ms) - 1} "
+        f"(host clock, no synchronization): mean {r['mean']:.3f}, p90 {r['p90']:.3f}, "
+        f"median {r['median']:.3f}, fps from the mean {1e3 / r['mean']:.3f}; "
+        f"shutdown (flush) {shutdown_ms:.3f} ms")
+    log(f"  {label}: trajectory {len(common)} of {len(frames)} frames, Sim3 ATE "
+        f"{ate:.4f} m; K1 launches {launches} over {len(frames)} track calls "
+        f"({launches / len(frames):g} per call); {n_disp} deferred dispatches, "
+        f"{n_get} fused_get waits; events by kind {n_kind}; peak device memory "
+        f"{peak:.0f} MiB; last state {states[-1]}")
+    log(f"  {label}: events {[e for e in tr.events if not e.startswith('KF@')]}")
+    log(f"  {label} ({card}): stage medians, ms (bench.py's "
+        f"e2e_stage_ms_per_frame): " +
+        ", ".join(f"{k} {v:.3f}" for k, v in sorted(stages.items())))
+    log_stage_timers(sys_, label, card)
+    problems = []
+    if launches != len(frames):
+        problems.append(f"K1 launched {launches} times over {len(frames)} track calls")
+    if deferred and n_get != n_disp:
+        problems.append(f"{n_get} fused_get waits for {n_disp} dispatches")
+    if gate_kinds:
+        if bad:
+            problems.append(f"events {bad[:10]}")
+        if len(common) < len(frames) - DEPLOY_MAX_MISSING:
+            problems.append(f"trajectory covers {len(common)} frames")
+        if not ate < DEPLOY_MAX_ATE_M:
+            problems.append(f"ATE {ate:.4f} m")
+        if n_disp < 1:
+            problems.append("no deferred dispatch")
+    if problems:
+        raise AssertionError(f"{label}: " + "; ".join(problems))
+    return r
+
+
+def check_readback(device) -> dict:
+    """utils.device.Readback on the card: its wait() returns while a sleep
+    kernel queued after it still runs (it waits on its own event, not on
+    the stream), with the values read back; and a Python thread keeps
+    running during the wait (the wait releases the interpreter lock)."""
+    x = torch.arange(4096, dtype=torch.float32, device=device)
+    want = (x * 3).cpu().numpy()
+    y = x * 3
+    torch.cuda._sleep(int(2e8))              # runs before the copies
+    rb = Readback([y])
+    torch.cuda._sleep(int(1e9))              # queued after the readback
+    count, stop = [0], [False]
+
+    def spin():
+        while not stop[0]:
+            count[0] += 1
+
+    th = threading.Thread(target=spin, daemon=True)
+    th.start()
+    time.sleep(0.002)
+    c0, t0 = count[0], time.perf_counter()
+    got = rb.wait()[0]
+    wait_ms = 1e3 * (time.perf_counter() - t0)
+    c1 = count[0]
+    busy = not torch.cuda.current_stream(device).query()
+    stop[0] = True
+    th.join()
+    torch.cuda.synchronize()
+    r = {"wait_ms": wait_ms, "spins": c1 - c0, "stream_busy": busy}
+    if not np.array_equal(got, want):
+        raise AssertionError("Readback: wrong values")
+    if not busy:
+        raise AssertionError("Readback.wait() waited for work queued after it")
+    if c1 - c0 < 1000:
+        raise AssertionError(f"Readback.wait() held the interpreter lock: a thread "
+                             f"counted {c1 - c0} during its {wait_ms:.3f} ms")
+    return r
+
+
+def phase_deployment(device, card: str) -> dict:
+    """Phase 11: bench.py's bench_end_to_end in the port.  The deployment
+    configuration (deferred batched tracking at pipeline_depth 3 with the
+    mapper on its own thread) over the 90 frames, gated as
+    tests/test_deferred.py gates that mode (no DROPFRAME@ or LOST@, the
+    trajectory, the ATE; THIN@ counted); the same pipeline with
+    synchronous mapping over the first 45 frames, gated as that file gates
+    the deferred mode alone (no THIN@ either); the same frames synchronously (no deferral, no
+    mapping thread) for the mean and the ATE; lag 1 (pipeline_depth 1,
+    async) over the first 30 frames.  Returns the deployment run's
+    numbers."""
+    import dataclasses
+    rb = check_readback(device)
+    log(f"  Readback ({card}): wait() returned after {rb['wait_ms']:.3f} ms with a "
+        f"sleep kernel queued after it still running; a Python thread counted "
+        f"{rb['spins']} during the wait (the event wait releases the interpreter lock)")
+    cfg, voc, frames, poses = deployment_scene(device)
+    dep = run_deployment(cfg, voc, frames, poses, "deployment (deferred, depth 3, "
+                         "async_mapping)", card, deferred=True, async_mapping=True,
+                         gate_kinds=("DROPFRAME@", "LOST@"))
+    n = DEPLOY_SYNCMAP_FRAMES
+    alone = run_deployment(cfg, voc, frames[:n], poses[:n], f"deferred, depth 3, "
+                           f"synchronous mapping, first {n} frames", card,
+                           deferred=True, async_mapping=False,
+                           gate_kinds=("DROPFRAME@", "THIN@", "LOST@"))
+    sync = run_deployment(cfg, voc, frames, poses, "same frames, synchronous", card,
+                          deferred=False, async_mapping=False)
+    lag1_cfg = dataclasses.replace(cfg, tracker=dataclasses.replace(
+        cfg.tracker, pipeline_depth=1))
+    lag1 = run_deployment(lag1_cfg, voc, frames[:DEPLOY_LAG1_FRAMES],
+                          poses[:DEPLOY_LAG1_FRAMES], "lag 1 (pipeline_depth 1, "
+                          "async_mapping), first 30 frames", card, deferred=True,
+                          async_mapping=True)
+    log(f"  deployment ({card}): mean {dep['mean']:.3f} ms/call "
+        f"({1e3 / dep['mean']:.3f} fps), p90 {dep['p90']:.3f}, ATE {dep['ate']:.4f} m, "
+        f"THIN@ {dep['events']['THIN@']}; deferred with synchronous mapping: mean "
+        f"{alone['mean']:.3f} ms/call over calls {alone['warm']}-{n - 1}, ATE "
+        f"{alone['ate']:.4f} m; synchronous over the "
+        f"same calls: mean {sync['mean']:.3f} ms/call ({1e3 / sync['mean']:.3f} fps), "
+        f"ATE {sync['ate']:.4f} m; deployment / synchronous "
+        f"{dep['mean'] / sync['mean']:.4f}; lag 1 over calls {lag1['warm']}-"
+        f"{DEPLOY_LAG1_FRAMES - 1}: mean {lag1['mean']:.3f} ms/call")
+    dep["alone"], dep["sync"], dep["lag1"], dep["readback"] = alone, sync, lag1, rb
+    return dep
+
 def profile_system(device, card: str, n_warm: int = 8, n_prof: int = 5) -> None:
     """`--profile`: the synchronous system under torch.profiler for n_prof
     tracked frames after n_warm, and one 15-step local BA on the last
@@ -1685,29 +1933,34 @@ def main() -> int:
     # 1. card
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/10] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/11] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {name}, count {torch.cuda.device_count()}")
 
     # 2. build
     t0 = time.perf_counter()
     built = not _build.library_path().exists()
     _build.load_library()
-    log(f"[2/10] build: {'compiled' if built else 'cached'} "
+    log(f"[2/11] build: {'compiled' if built else 'cached'} "
         f"{_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             log(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    built = not invfile.library_path().exists()
+    invfile.load_library()
+    log(f"  postings index: {'compiled' if built else 'cached'} "
+        f"{invfile.library_path().name} (g++) in {time.perf_counter() - t0:.1f} s")
 
     # 3. K1 against its plain version
     k1_err = phase_k1(device)
-    log(f"[3/10] K1 agrees with its plain version at all level shapes, one level "
+    log(f"[3/11] K1 agrees with its plain version at all level shapes, one level "
         f"per launch and the pyramid in one launch (max |err| {k1_err})")
 
     # 4. the one-frame path at full width
     cfg = dual_default()
     t0 = time.perf_counter()
     scene = Scene(cfg, device)
-    log(f"[4/10] scene: {N_FRAMES} frames 2x{H}x{W}, {scene.n_feats} features/camera, "
+    log(f"[4/11] scene: {N_FRAMES} frames 2x{H}x{W}, {scene.n_feats} features/camera, "
         f"{int(scene.store.valid.sum())}/{scene.cap} store slots seeded, vocabulary "
         f"k=10 depth 6 ({sum(c.numel() * 4 for c in scene.voc.centroids) / 1e6:.1f} MB) "
         f"in {time.perf_counter() - t0:.1f} s")
@@ -1726,7 +1979,7 @@ def main() -> int:
     if batch_launches != DEPTH:
         raise AssertionError(f"K1 launched {batch_launches} times over a batch of "
                              f"{DEPTH} frames, expected 1 per frame")
-    log(f"[5/10] batched path: {DEPTH} frames equal the one-by-one run exactly; "
+    log(f"[5/11] batched path: {DEPTH} frames equal the one-by-one run exactly; "
         f"K1 launches {batch_launches} ({batch_launches / DEPTH:g} per frame)")
 
     # 6. timing
@@ -1734,7 +1987,7 @@ def main() -> int:
     t_span, spans = run_chain_with_spans(scene, device)
     t_rand = time_random(scene, device)
     med = float(np.median(t_rend))
-    log(f"[6/10] step ms/frame ({card}): rendered chain median {med:.3f} "
+    log(f"[6/11] step ms/frame ({card}): rendered chain median {med:.3f} "
         f"(min {min(t_rend):.3f}, max {max(t_rend):.3f}); random frames "
         f"(widened retry) median {np.median(t_rand):.3f} "
         f"(max {max(t_rand):.3f})")
@@ -1771,7 +2024,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sys_launches = phase_system(device, card)
-    log(f"[7/10] system: System.track initialized, tracked, mapped and bundle-"
+    log(f"[7/11] system: System.track initialized, tracked, mapped and bundle-"
         f"adjusted the orbit synchronously and with async_mapping; K1 launches "
         f"{sys_launches} over {SYS_FRAMES} track calls (1 per call); peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB; phase "
@@ -1782,7 +2035,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     dual_launches, dual = phase_dual(device, card)
-    log(f"[8/10] dual bootstrap: System(cfg, voc).track walked out, turned and came "
+    log(f"[8/11] dual bootstrap: System(cfg, voc).track walked out, turned and came "
         f"back, relocalized across cameras, scaled the map by the baseline and "
         f"reached FULL, synchronously and with async_mapping, and relocalized by "
         f"vocabulary after a forced loss; K1 launches {dual_launches} (1 per track "
@@ -1795,7 +2048,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     loop_launches = phase_loop(device, card)
-    log(f"[9/10] loop: System(cfg, voc, enable_loop_closing=True).track went past a "
+    log(f"[9/11] loop: System(cfg, voc, enable_loop_closing=True).track went past a "
         f"full turn, detected the loop, computed and optimized its Sim3, corrected "
         f"it and ran the global BA; K1 launches {loop_launches} (1 per track call); "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB; "
@@ -1808,7 +2061,7 @@ def main() -> int:
     t0 = time.perf_counter()
     ran = phase_run(device, card, dual)
     del dual
-    log(f"[10/10] run path: python3 -m orbslam2_dualcam_tpu_torch.run tracked "
+    log(f"[10/11] run path: python3 -m orbslam2_dualcam_tpu_torch.run tracked "
         f"{RUN_FRAMES} frames of a joint MJPG video with a settings file and a "
         f"vocabulary file and wrote its four artifacts; the map restored, its "
         f"database rebuilt, the cloud tools on its points; K1 launches "
@@ -1818,10 +2071,26 @@ def main() -> int:
         f"{time.perf_counter() - t0:.0f} s, total "
         f"{time.perf_counter() - t_start:.0f} s ({card})")
 
+    # 11. the deployment configuration: deferred batched tracking with the
+    # mapping thread (bench.py's bench_end_to_end)
+    t0 = time.perf_counter()
+    dep = phase_deployment(device, card)
+    log(f"[11/11] deployment: System(cfg, voc, enable_loop_closing=False, "
+        f"async_mapping=True, deferred_tracking=True) tracked the {DEPLOY_FRAMES}-frame "
+        f"orbit at pipeline_depth 3 with no DROPFRAME or LOST ({dep['events']['THIN@']} "
+        f"THIN; none with synchronous mapping); trajectory {dep['n_traj']} frames, ATE "
+        f"{dep['ate']:.4f} m; mean {dep['mean']:.3f} ms/call (synchronous "
+        f"{dep['sync']['mean']:.3f}); K1 launches {dep['launches']} over "
+        f"{DEPLOY_FRAMES} track calls; {dep['gets']} fused_get waits for "
+        f"{dep['dispatches']} dispatches; peak device memory {dep['peak']:.0f} MiB; "
+        f"phase {time.perf_counter() - t0:.0f} s, total "
+        f"{time.perf_counter() - t_start:.0f} s ({card})")
+
     # launches: the one-frame chain's, the batch's, the synchronous mono
-    # system run's, the synchronous dual walk's, the loop run's and the run
-    # path's, each counted from 0 just before its path ran; times: the
-    # pyramid launch, as every path calls it, on the main path's own data
+    # system run's, the synchronous dual walk's, the loop run's, the run
+    # path's and the deployment run's, each counted from 0 just before its
+    # path ran; times: the pyramid launch, as every path calls it, on the
+    # main path's own data
     print(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda",
         "source": "orbslam2_dualcam_tpu_torch/csrc/fast_nms.cu",
@@ -1831,6 +2100,7 @@ def main() -> int:
         "launches_dual_path": dual_launches,
         "launches_loop_path": loop_launches,
         "launches_run_path": ran["launches"],
+        "launches_deployment_path": dep["launches"],
         "max_abs_err": k1_err,
         "ms": k["pyramid_device_ms"], "per_call_ms": k["pyramid_call_ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -8,7 +8,8 @@ queried asymmetrically — camera `query_cam`'s BoW vector against camera
 `resp_cam`'s index — which is THE enabler of cross-camera relocalization
 (DetectRelocalizationCandidatesForCam, :250-370).
 
-Index bookkeeping is host-side numpy and Python (irregular lists).  BoW vectors are SPARSE
+Index bookkeeping is host-side: the C++ postings index
+(native/invfile.cpp) or Python sets.  BoW vectors are SPARSE
 (word -> weight), exactly DBoW2's BowVector representation: at ORBvoc scale
 (1e6 words) a dense vector is 4 MB/KF/camera, a sparse one ~10 KB, and the
 L1 score only ever needs the intersection of active words
@@ -24,14 +25,28 @@ import numpy as np
 from orbslam2_dualcam_tpu_torch.models.map import KeyFrame, Map
 from orbslam2_dualcam_tpu_torch.vocab.bow import SparseBow, score_sparse
 
+# The C++ postings index (native/invfile.cpp), imported without a `try`:
+# a failed build raises with g++'s message when a database is made.  Set
+# this attribute to None to select the Python postings for every database
+# made after that (the parity tests do, on both packages, to carry
+# postings from one database to the other).
+from orbslam2_dualcam_tpu_torch.native.invfile import NativeInvertedFile
+
 
 class KeyFrameDatabase:
-    def __init__(self, n_cameras: int, n_words: int) -> None:
-        """The postings are the reference's pure-Python index; its C++
-        index gives the same counts and is not ported yet."""
+    def __init__(self, n_cameras: int, n_words: int,
+                 use_native: bool = True) -> None:
+        """`use_native` selects the C++ postings index (the reference's
+        default too, so both packages break `_score_and_group`'s score
+        ties in the same order); False, or the module attribute
+        `NativeInvertedFile` set to None, selects the Python postings,
+        which `inverted` exposes."""
         self.n_cameras = n_cameras
         self.n_words = n_words
-        # inverted[cam][word] = set of kids
+        self.native = (NativeInvertedFile(n_cameras, n_words)
+                       if use_native and NativeInvertedFile is not None
+                       else None)
+        # the Python postings: inverted[cam][word] = set of kids
         self.inverted: List[Dict[int, Set[int]]] = [
             defaultdict(set) for _ in range(n_cameras)]
         # sparse per-camera BoW vectors: kid -> SparseBow
@@ -49,19 +64,26 @@ class KeyFrameDatabase:
             bow_vec: SparseBow) -> None:
         """Register camera `cam` of keyframe `kid` (KeyFrameDatabase::add,
         :66-73 adds per camera)."""
-        for w in np.unique(words[words >= 0]):
-            self.inverted[cam][int(w)].add(kid)
+        if self.native is not None:
+            self.native.add(kid, cam, words)
+        else:
+            for w in np.unique(words[words >= 0]):
+                self.inverted[cam][int(w)].add(kid)
         self.bow[cam][kid] = bow_vec
 
     def erase(self, kid: int) -> None:
+        if self.native is not None:
+            self.native.erase(kid)
         for cam in range(self.n_cameras):
             vec = self.bow[cam].pop(kid, None)
-            if vec is None:
+            if vec is None or self.native is not None:
                 continue
             for w in vec.words:
                 self.inverted[cam][int(w)].discard(kid)
 
     def clear(self) -> None:
+        if self.native is not None:
+            self.native.clear()
         for cam in range(self.n_cameras):
             self.inverted[cam].clear()
             self.bow[cam].clear()
@@ -69,6 +91,8 @@ class KeyFrameDatabase:
     # -- queries ----------------------------------------------------------
     def _shared_word_counts(self, words: np.ndarray, resp_cam: int,
                             exclude: Set[int]) -> Dict[int, int]:
+        if self.native is not None:
+            return self.native.query(resp_cam, words, exclude)
         counts: Dict[int, int] = defaultdict(int)
         for w in np.unique(words[words >= 0]):
             for kid in self.inverted[resp_cam].get(int(w), ()):

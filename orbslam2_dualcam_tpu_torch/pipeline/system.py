@@ -17,8 +17,11 @@ with the tracker's host work and the reverse.
 With a vocabulary the system relocalizes by it, runs the dual-camera
 bootstrap to a metric map and, unless `enable_loop_closing=False`, closes
 loops (detection, Sim3, correction, global BA).  `viewer=True` serves the
-live viewer (viz/live.py) over HTTP.  A device mesh and deferred tracking
-are not ported yet and raise NotImplementedError.
+live viewer (viz/live.py) over HTTP.  `deferred_tracking=True` pipelines
+the tracker (Tracker(deferred=True)); with `async_mapping=True` as well it
+is the deployment configuration, in which the tracker takes the map lock
+only around its map-touching host sections.  A device mesh is not ported
+yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -65,12 +68,16 @@ class System:
         `system.viewer.port`.  `track` redraws it from host data after each
         frame and `shutdown` closes it.
 
-        `mesh` and `deferred_tracking=True` are not ported yet and raise
-        NotImplementedError."""
+        `deferred_tracking=True` runs the tracker pipelined: frames are
+        dispatched to the device `cfg.tracker.pipeline_depth` at a time (1:
+        lag-1), and the previous dispatch's results are read and processed
+        while the new one runs, so track() returns the state up to
+        2*depth-1 frames behind, and shutdown() flushes the frames in
+        flight.
+
+        `mesh` is not ported yet and raises NotImplementedError."""
         if mesh is not None:
             raise _waits("distributed-BA", "System with a device mesh")
-        if deferred_tracking:
-            raise _waits("deferred-tracking", "System(deferred_tracking=True)")
         self.cfg = cfg
         self.mesh = None
         self.device = resolve_device(device)
@@ -108,7 +115,12 @@ class System:
         else:
             front = self.mapper
         self.tracker = Tracker(cfg, self.rig, voc, self.map, self.kfdb,
-                               local_mapper=front)
+                               local_mapper=front,
+                               deferred=deferred_tracking)
+        if async_mapping and self.tracker.deferred:
+            # the tracker takes the lock itself, only around map-touching
+            # sections, so the mapper thread runs during readback waits
+            self.tracker.map_lock = self.map_lock
         if async_mapping:
             # KF back-pressure (the reference's LocalMapping idle check):
             # with >=2 keyframes queued, defer further insertions
@@ -132,9 +144,11 @@ class System:
         import time as _time
         t0 = _time.monotonic()
         try:
-            if self._async:
+            if self._async and not self.tracker.deferred:
                 with self.map_lock:
                     return self.tracker.process(images, timestamp)
+            # synchronous mapping, or the deferred tracker, which holds the
+            # lock only around its map-touching host sections
             return self.tracker.process(images, timestamp)
         finally:
             self.frame_intervals.append((t0, _time.monotonic()))

@@ -14,12 +14,17 @@ fused one-readback frame with its host-stepped fallback cascade, keyframe
 insertion, relocalization (by vocabulary and without one), localization
 mode, and the dual-camera bootstrap: cross-camera relocalization, the
 second map with its metric re-scaling by the known baseline, the FULL
-state and its metric global BA.  The deferred (pipelined) mode and a
-device mesh raise NotImplementedError.
+state and its metric global BA; and the deferred mode
+(`Tracker(deferred=True)`): frames are dispatched with the pose, velocity
+and matched-slot carries left on the device, `pipeline_depth` frames per
+dispatch (make_track_batch_fn) or one (lag 1), and the previous dispatch's
+results are read back and processed while the new one runs.  A device
+mesh raises NotImplementedError.
 
 Host <-> device traffic per tracked frame: one pinned upload of the u8
 images, one pinned upload of the packed map store, and one readback of all
-result leaves behind a single stream synchronization.
+result leaves behind its own CUDA event (utils.device.Readback), so in the
+deferred mode reading frame k-1 does not wait for frame k.
 """
 
 from __future__ import annotations
@@ -41,8 +46,8 @@ from orbslam2_dualcam_tpu_torch.pipeline import ba_pack, frontend
 from orbslam2_dualcam_tpu_torch.pipeline.loop_closing import \
     apply_sim3_correction
 from orbslam2_dualcam_tpu_torch.utils.config import SystemConfig
-from orbslam2_dualcam_tpu_torch.utils.device import (resolve_device, to_host,
-                                                      upload)
+from orbslam2_dualcam_tpu_torch.utils.device import (Readback, resolve_device,
+                                                      to_host, upload)
 from orbslam2_dualcam_tpu_torch.utils.profiling import StageTimer
 from orbslam2_dualcam_tpu_torch.vocab import bow
 
@@ -209,11 +214,8 @@ class Tracker:
                  local_mapper=None, mesh=None,
                  deferred: bool = False) -> None:
         """Runs on the device the rig's tensors lie on (the vocabulary must
-        lie there too)."""
-        if deferred:
-            raise _waits("deferred-tracking",
-                         "Tracker(deferred=True), the pipelined and batched "
-                         "tracker modes,")
+        lie there too).  `deferred=True` selects the pipelined mode when
+        the fused step is on (cfg.tracker.fused_tracking)."""
         if mesh is not None:
             raise _waits("distributed-BA", "Tracker with a device mesh")
         self.cfg = cfg
@@ -244,18 +246,36 @@ class Tracker:
                                    device=self.device)
             if cfg.tracker.fused_tracking else None)
         self._store: Optional[DeviceMapStore] = None
-        self.deferred = False
+        # deferred (pipelined) mode: dispatch frame k, then read and
+        # process frame k-1's results while k runs on the device; the host
+        # never waits for the frame it just dispatched
+        self.deferred = deferred and self._track_fused is not None
+        # in async+deferred mode the System hands us its map lock and we
+        # take it only around map-touching host sections: the readback
+        # wait runs unlocked so the mapping thread works during it (the
+        # reference's LocalMapping-thread overlap, System.cc:126)
         self.map_lock = None
         # async back-pressure: when the mapping thread is behind, defer
         # keyframe insertion instead of queueing unboundedly (the
         # reference's idle check, Tracking.cc:1553-1560)
         self.mapper_busy: Optional[Callable[[], bool]] = None
+        self._pending = None    # in-flight dispatch (lag-1 or batch form)
+        self._carry = None      # (T_cw, V, mp_slots) on the device
+        self._batch: List[Tuple] = []   # buffered (u8 images, ts, fid)
+        depth = max(1, int(cfg.tracker.pipeline_depth))
+        self._depth = depth if self.deferred else 1
+        self._track_batch = (
+            frontend.make_track_batch_fn(cfg, cfg.orb.n_track, voc, rig,
+                                         depth, device=self.device)
+            if self.deferred and depth > 1 else None)
         self.scale_factors = np.asarray(cfg.orb.scale_factors, np.float32)
         self._level_scales = torch.as_tensor(self.scale_factors,
                                              device=self.device)
         # host copies of the rig, read once
         self._T_sc_np, self._T_cs_np = to_host((rig.T_sc, rig.T_cs))
-        self._img_stage: Optional[_Staging] = None
+        # pinned upload buffers: "frame" for one frame's images, "batch"
+        # for a deferred dispatch's [D, ncam, H, W] stack
+        self._stages: Dict[str, _Staging] = {}
 
         self.frame_id = 0
         self.last: Optional[HostFrame] = None
@@ -320,12 +340,24 @@ class Tracker:
         self.last_reloc_cam_pose = None
         self._xedges_at_gba = 0
         self.trajectory.clear()
+        self._pending = None
+        self._carry = None
         self._store = None
+        self._batch = []
 
     # ------------------------------------------------------------------
     def process(self, images: np.ndarray, timestamp: float) -> str:
         """Main per-frame entry (System::TrackDual -> Tracking::GrabImageDual,
-        System.cc:153-180).  images [ncam, H, W] u8 or float grayscale."""
+        System.cc:153-180).  images [ncam, H, W] u8 or float grayscale.
+
+        In deferred mode the returned state (and all bookkeeping) lags up
+        to 2*depth-1 frames: frames are dispatched to the device in
+        batches of `pipeline_depth`, and the previous batch's results are
+        read and processed while the new one computes."""
+        if self.deferred:
+            r = self._process_deferred(images, timestamp)
+            if r is not None:
+                return r
         with self._lock():
             return self._process_sync(images, timestamp)
 
@@ -461,9 +493,226 @@ class Tracker:
         self.n_fused_frames += 1
         return self._track_tail(frame)
 
-    def flush(self) -> str:
-        """Nothing is in flight in the synchronous mode."""
+    # ------------------------------------------------------------------
+    # deferred (pipelined) mode
+    # ------------------------------------------------------------------
+    def _process_deferred(self, images: np.ndarray, ts: float):
+        """Dispatch frame k with device-resident carries (pose, velocity,
+        previous matched slots), then read & process frame k-1 while k
+        computes.  Returns the state as of the last processed frame, or
+        None to fall back to the synchronous path (pipeline drained).
+
+        Map-touching sections run under self._lock(); the readback wait in
+        _process_pending runs unlocked so the mapping thread works during
+        the device wait."""
+        with self._lock():
+            eligible = (self.state in (self.OK, self.FULL)
+                        and not self._force_lost)
+            if eligible and self._carry is None:
+                # pipeline start: seed the carries from the last processed
+                # frame
+                last = self.last
+                if (last is None or last.T_cw is None
+                        or last.mp_ids is None
+                        or int((last.mp_ids >= 0).sum()) < 10):
+                    eligible = False
+                else:
+                    self._refresh_store(last, sticky=True)
+                    st = self._store
+                    if st is None or st.n_valid < 10:
+                        eligible = False
+                    else:
+                        V = (self.velocity if self.velocity is not None
+                             else np.eye(4))
+                        # canonical [ncam, n_track] slot layout whatever the
+                        # seed frame's feature budget (init frames carry 2x
+                        # features; the carry's shape must be fixed)
+                        sl = st.slots_of_mids(last.mp_ids)
+                        sl = sl[sl >= 0]
+                        seed = np.full(
+                            (self.cfg.n_cameras, self.cfg.orb.n_track),
+                            -1, np.int64)
+                        seed.reshape(-1)[:sl.size] = sl[:seed.size]
+                        self._carry = (
+                            upload(last.T_cw.astype(np.float32), self.device),
+                            upload(V.astype(np.float32), self.device),
+                            upload(seed, self.device))
+        if not eligible or self._store is None:
+            self._drain_pending()
+            return None
+
+        st = self._store
+        if self._depth > 1:
+            # batched pipeline: buffer D frames, dispatch them as one
+            # make_track_batch_fn call, and process the PREVIOUS batch
+            # while the new one computes
+            self._batch.append((self._to_u8(np.asarray(images)), ts,
+                                self.frame_id))
+            self.frame_id += 1
+            if len(self._batch) < self._depth:
+                return self.state
+            imgs = np.stack([b[0] for b in self._batch])
+            metas = [(b[1], b[2]) for b in self._batch]
+            self._batch = []
+            with self.timer("fused_dispatch"):
+                carry, fds, outs = self._track_batch(
+                    self._stage(imgs, "batch"), *self._carry,
+                    upload(self._cam_enabled(), self.device), *st.arrays)
+                readback = Readback(self._fd_leaves(fds) + list(outs))
+            self._carry = carry
+            pending = self._pending
+            self._pending = ("batch", readback, metas, st.slot_mids.copy())
+            if pending is None:
+                return self.state
+            return self._process_pending(pending)
+
+        with self.timer("fused_dispatch"):
+            fd, out = self._track_fused(
+                self._stage_images(images), *self._carry,
+                upload(self._cam_enabled(), self.device), *st.arrays)
+            readback = Readback(self._fd_leaves(fd) + list(out))
+        self._carry = (out.T_cw, out.V_new, out.mp_slots)
+        fid = self.frame_id
+        self.frame_id += 1
+        pending = self._pending
+        self._pending = ("one", readback, [(ts, fid)], st.slot_mids.copy())
+        if pending is None:
+            return self.state
+        return self._process_pending(pending)
+
+    @staticmethod
+    def _split_host(host: list, d: Optional[int]):
+        """A dispatch's read-back leaves -> (fd leaves, FusedTrackOut) of
+        frame `d` of a batch (None: a one-frame dispatch)."""
+        leaves = host if d is None else [a[d] for a in host]
+        n_out = len(frontend.FusedTrackOut._fields)
+        return leaves[:-n_out], frontend.FusedTrackOut(*leaves[-n_out:])
+
+    def _process_pending(self, pending) -> str:
+        """Read back and fully process previously dispatched frame(s)
+        (the host half of the pipeline, running a batch behind)."""
+        kind, readback, metas, slot_mids = pending
+        with self.timer("fused_get"):
+            host = readback.wait()
+        items = [(*self._split_host(host, d if kind == "batch" else None),
+                  ts, fid) for d, (ts, fid) in enumerate(metas)]
+        with self._lock():
+            for i, (fd_h, out_h, ts, fid) in enumerate(items):
+                clean = self._process_one(fd_h, out_h, ts, fid, slot_mids)
+                if not clean:
+                    # later frames of this batch were computed with a
+                    # carry this frame's processing just invalidated
+                    # (failure or a cascade-recovered pose).  Their fused
+                    # poses are garbage, but their EXTRACTION never
+                    # depended on the carry: re-track each through the
+                    # host cascade instead of dropping it, so the
+                    # trajectory stays complete across pipeline aborts
+                    for fd2, _, ts2, fid2 in items[i + 1:]:
+                        self.events.append(f"RESCUE@{fid2}")
+                        self._host_reprocess(fd2, ts2, fid2)
+                    self._abort_pipeline(rescue=True)
+                    return self.state
+            # repack (sticky) so the NEXT dispatch sees this batch's map
+            # updates (new KFs / points / local BA)
+            self._refresh_store(self.last, sticky=True)
+            if self._store is None or self._store.n_valid < 10:
+                self._abort_pipeline(rescue=True)
         return self.state
+
+    def _relocalize_after_loss(self, frame: HostFrame) -> None:
+        self.state = self.LOST
+        self.events.append(f"LOST@{frame.frame_id}")
+        with self.timer("relocalize"):
+            ok = self._relocalize(frame)
+        if ok:
+            self.state = self.OK
+            self.events.append(f"RELOC@{frame.frame_id}")
+
+    def _host_reprocess(self, fd_h: list, ts: float, fid: int) -> None:
+        """Track one already-extracted frame through the host cascade
+        (used when a deferred batch's device carry chain is invalid:
+        extraction is carry-independent, so the frame is still fully
+        recoverable)."""
+        frame = self._pull(fd_h, ts, frame_id=fid)
+        ok = False
+        if self.state in (self.OK, self.FULL):
+            with self.timer("track"):
+                ok = self._track(frame)
+        if not ok:
+            self._relocalize_after_loss(frame)
+        self._record_trajectory(frame, ts)
+        self.last = frame
+
+    def _process_one(self, fd_h: list, out_h, ts: float, fid: int,
+                     slot_mids: np.ndarray) -> bool:
+        """Full host-side processing of one read-back frame.  Returns
+        True iff the frame was cleanly accepted on the fused path (i.e.
+        the device carry chain remains valid)."""
+        frame = self._pull(fd_h, ts, frame_id=fid)
+        n1 = int(out_h.n_stage1)
+        n_final = int(out_h.n_final)
+        if n1 < self.cfg.tracker.min_matches_motion:
+            self.events.append(f"THIN@{fid} n1={n1} nf={n_final}")
+        with self.timer("track"):
+            # accept on a healthy stage-1 OR a stage-2 rescue: the local-
+            # map rematch re-optimized against the FULL store, so a thin
+            # motion-model start with a solid final count is a good frame;
+            # only a thin FINAL count falls back to the host cascade (the
+            # synchronous path's rule, _track, accepts stage 1 alone)
+            ok = ((n1 >= self.cfg.tracker.min_matches_motion
+                   or n_final >= self.cfg.tracker.min_matches_motion)
+                  and self._finish_fused(frame, out_h, slot_mids))
+            if not ok and self.state in (self.OK, self.FULL):
+                # host fallback cascade on the materialized frame before
+                # declaring LOST (same order as the sync path)
+                ok = self._track(frame)
+        clean = ok and frame.T_cw is not None and np.allclose(
+            frame.T_cw, np.asarray(out_h.T_cw, np.float64), atol=1e-5)
+        if not ok:
+            self._relocalize_after_loss(frame)
+        self._record_trajectory(frame, ts)
+        self.last = frame
+        return clean and self.state in (self.OK, self.FULL)
+
+    def flush(self) -> str:
+        """Drain the deferred pipeline: process the in-flight frames (call
+        before reading final trajectories / shutting down).  Nothing is in
+        flight in the synchronous mode."""
+        self._drain_pending()
+        return self.state
+
+    def _abort_pipeline(self, rescue: bool = False) -> None:
+        """Invalidate the in-flight dispatch's carry chain.  With
+        rescue=True the in-flight frames are read back and re-tracked
+        through the host cascade (their extraction is carry-independent);
+        otherwise they are dropped with a visible DROPFRAME event."""
+        pending, self._pending = self._pending, None
+        self._carry = None
+        if pending is None:
+            return
+        kind, readback, metas, _ = pending
+        if not rescue:
+            for _, fid in metas:
+                self.events.append(f"DROPFRAME@{fid}")
+            return
+        with self.timer("fused_get"):
+            host = readback.wait()
+        for d, (ts, fid) in enumerate(metas):
+            fd_h, _ = self._split_host(host, d if kind == "batch" else None)
+            self.events.append(f"RESCUE@{fid}")
+            self._host_reprocess(fd_h, ts, fid)
+
+    def _drain_pending(self) -> None:
+        """Process any in-flight + buffered frames before leaving the
+        pipelined mode (shutdown, reloc, state change)."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            self._process_pending(pending)
+        buffered, self._batch = self._batch, []
+        self._carry = None
+        for img, ts, fid in buffered:
+            with self._lock():
+                self._process_sync(img, ts, fid=fid)
 
     def _to_u8(self, images: np.ndarray) -> np.ndarray:
         if images.dtype == np.uint8 or not self.cfg.tracker.images_u8:
@@ -477,11 +726,15 @@ class Tracker:
         is the reference's native input domain, GrabImageDual
         Tracking.cc:236-269); the extraction converts to f32 on the device
         either way."""
-        img = self._to_u8(np.asarray(images))
+        return self._stage(self._to_u8(np.asarray(images)), "frame")
+
+    def _stage(self, img: np.ndarray, key: str) -> torch.Tensor:
+        """Upload `img` (u8 or f32) through the pinned staging buffer
+        `key`, which is rewritten only after its previous copy finished."""
         dtype = torch.uint8 if img.dtype == np.uint8 else torch.float32
-        st = self._img_stage
+        st = self._stages.get(key)
         if st is None or st.np.shape != img.shape or st.buf.dtype != dtype:
-            st = self._img_stage = _Staging(img.shape, dtype, self.device)
+            st = self._stages[key] = _Staging(img.shape, dtype, self.device)
         st.begin()[...] = img
         return st.send()
 

@@ -116,14 +116,16 @@ def kfdb_from_reference(ref_kfdb):
     """A KeyFrameDatabase of the JAX package -> the port's with equal
     postings and BoW vectors.  The reference must have been built with its
     pure-Python index (`use_native=False`): the C++ index cannot be read
-    back."""
+    back.  The port's database is made with its Python postings too, which
+    are written here directly."""
     from orbslam2_dualcam_tpu_torch.models.kfdb import KeyFrameDatabase
     from orbslam2_dualcam_tpu_torch.vocab.bow import SparseBow
 
     if getattr(ref_kfdb, "native", None) is not None:
         raise ValueError("kfdb_from_reference: the reference database uses "
                          "its C++ index; build it with use_native=False")
-    db = KeyFrameDatabase(ref_kfdb.n_cameras, ref_kfdb.n_words)
+    db = KeyFrameDatabase(ref_kfdb.n_cameras, ref_kfdb.n_words,
+                          use_native=False)
     for cam in range(ref_kfdb.n_cameras):
         for w, kids in ref_kfdb.inverted[cam].items():
             if kids:

@@ -38,16 +38,39 @@ def upload(a, device) -> torch.Tensor:
 
 
 def to_host(tensors) -> list:
-    """Tensors -> numpy arrays with ONE wait for the card: every leaf is
-    copied into pinned host memory without blocking, then the stream is
-    synchronized once (a `.cpu()` per leaf would wait once per leaf).  CPU
-    tensors are returned as views."""
-    tensors = [t.detach() for t in tensors]
-    if not tensors or tensors[0].device.type != "cuda":
-        return [t.numpy() for t in tensors]
-    bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            for t in tensors]
-    for b, t in zip(bufs, tensors):
-        b.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(tensors[0].device).synchronize()
-    return [b.numpy() for b in bufs]
+    """Tensors -> numpy arrays with ONE wait for the card (a `.cpu()` per
+    leaf would wait once per leaf): `Readback(tensors).wait()`."""
+    return Readback(tensors).wait()
+
+
+class Readback:
+    """A readback that waits for its own copies only.
+
+    Made at dispatch time: every leaf is copied into pinned host memory
+    without blocking, and a CUDA event is recorded after the copies.
+    `wait()` synchronizes that event alone, so work queued on the stream
+    after the readback (the next frame's dispatch) is not waited for, and
+    returns numpy arrays.  On CPU tensors the copies are made at once and
+    `wait()` returns them."""
+
+    def __init__(self, tensors) -> None:
+        tensors = [t.detach() for t in tensors]
+        self._event = None
+        if not tensors or tensors[0].device.type != "cuda":
+            self._arrays = [t.numpy().copy() for t in tensors]
+            return
+        bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in tensors]
+        for b, t in zip(bufs, tensors):
+            b.copy_(t, non_blocking=True)
+        self._event = torch.cuda.Event()
+        self._event.record(torch.cuda.current_stream(tensors[0].device))
+        self._arrays = [b.numpy() for b in bufs]
+
+    def wait(self) -> list:
+        if self._event is not None:
+            # releases the interpreter lock while it waits, so the mapping
+            # thread runs meanwhile
+            self._event.synchronize()
+            self._event = None
+        return self._arrays

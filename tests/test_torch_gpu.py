@@ -563,3 +563,42 @@ def test_optimize_sim3_never_synchronizes():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(n) >= 60 and torch.isfinite(S).all()
+
+
+@pytest.mark.gpu
+def test_readback_waits_on_its_own_event():
+    """utils.device.Readback, made behind a short sleep kernel, returns from
+    wait() while a long sleep kernel queued after it still runs (it waits on
+    its own event, not on the stream), with the values of its leaves; a
+    Python thread keeps counting during the wait (the event wait releases
+    the interpreter lock, so the mapping thread runs meanwhile)."""
+    import threading
+
+    from orbslam2_dualcam_tpu_torch.utils.device import Readback
+
+    _card()
+    x = torch.arange(4096, dtype=torch.float32, device="cuda")
+    want = [(x * 3).cpu().numpy(), (x > 100).cpu().numpy()]
+    torch.cuda._sleep(int(2e8))
+    rb = Readback([x * 3, x > 100])
+    torch.cuda._sleep(int(1e9))
+    count, stop = [0], [False]
+
+    def spin():
+        while not stop[0]:
+            count[0] += 1
+
+    th = threading.Thread(target=spin, daemon=True)
+    th.start()
+    c0 = count[0]
+    got = rb.wait()
+    c1 = count[0]
+    busy = not torch.cuda.current_stream().query()
+    stop[0] = True
+    th.join()
+    torch.cuda.synchronize()
+    assert busy, "wait() waited for the sleep queued after the readback"
+    assert c1 - c0 > 1000
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert rb.wait() is got

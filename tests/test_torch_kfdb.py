@@ -1,8 +1,9 @@
-"""The port's keyframe database against the reference's (built with
-`use_native=False`: the pure-Python postings, whose dict order the
-candidate ranking depends on where scores tie): the same adds, erases and
-queries on both give equal shared-word counts and equal candidate lists,
-and `kfdb_from_reference` carries a database across."""
+"""The port's keyframe database against the reference's, both built with
+`use_native=False` (the pure-Python postings, whose postings the tests
+read and carry across; the C++ index of both packages is held equal in
+tests/test_torch_native_invfile.py): the same adds, erases and queries on
+both give equal shared-word counts and equal candidate lists, and
+`kfdb_from_reference` carries a database across."""
 
 import numpy as np
 import pytest
@@ -61,7 +62,7 @@ def _both(setup, kids=None):
     ref_voc, voc, rm, pm, words, _ = setup
     kids = sorted(words) if kids is None else kids
     rdb = ref_kfdb.KeyFrameDatabase(2, N_WORDS, use_native=False)
-    pdb = kfdb.KeyFrameDatabase(2, N_WORDS)
+    pdb = kfdb.KeyFrameDatabase(2, N_WORDS, use_native=False)
     _fill(rdb, ref_voc, ref_bow.sparse_bow, words, kids)
     _fill(pdb, voc, bow.sparse_bow, words, kids)
     return rdb, pdb
@@ -146,6 +147,7 @@ def test_kfdb_from_reference_carries_the_database(setup):
     # independent copies
     pdb.erase(0)
     assert 0 in rdb.bow[0] and 0 not in pdb.bow[0]
+    assert pdb.native is None
     if ref_kfdb.NativeInvertedFile is not None:
         with pytest.raises(ValueError, match="use_native=False"):
             kfdb_from_reference(ref_kfdb.KeyFrameDatabase(2, N_WORDS))

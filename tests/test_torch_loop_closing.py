@@ -30,6 +30,7 @@ from orbslam2_dualcam_tpu.ops import camera as ref_camera
 from orbslam2_dualcam_tpu.ops import ransac as ref_ransac
 from orbslam2_dualcam_tpu.pipeline import loop_closing as ref_lc
 from orbslam2_dualcam_tpu.utils import config as ref_config
+from orbslam2_dualcam_tpu_torch.models import kfdb as port_kfdb
 from orbslam2_dualcam_tpu_torch.ops import camera
 from orbslam2_dualcam_tpu_torch.pipeline import loop_closing
 from orbslam2_dualcam_tpu_torch.pipeline.system import System
@@ -169,8 +170,12 @@ def _port_system(async_mapping=False):
     rmap, rdb, rvoc, back = scripted_loop_map()
     cfg, rig, pmap, pdb, voc = _port_state(rmap, rdb, rvoc,
                                            scripted_cfg(ref_config))
-    sys_ = System(cfg, voc, enable_loop_closing=True,
-                  async_mapping=async_mapping, device="cpu")
+    # the scripted database's postings are carried into the system's
+    # database, so that one is made with the Python postings
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_kfdb, "NativeInvertedFile", None)
+        sys_ = System(cfg, voc, enable_loop_closing=True,
+                      async_mapping=async_mapping, device="cpu")
     # the scripted map and its database stand in for a tracked run
     for name in ("keyframes", "points", "next_kid", "next_mid", "origin_kid",
                  "first_scale_kid", "geometry_epoch"):
@@ -279,6 +284,7 @@ def test_closing_on_the_reference_orbit_equals_reference(monkeypatch):
     from orbslam2_dualcam_tpu.utils import synthetic as ref_synthetic
     from orbslam2_dualcam_tpu.vocab import bow as ref_bow
     monkeypatch.setattr(ref_kfdb, "NativeInvertedFile", None)
+    monkeypatch.setattr(port_kfdb, "NativeInvertedFile", None)
     rcfg = ref_config.SystemConfig(
         cameras=(ref_config.CameraConfig(width=320, height=240, fx=260, fy=260,
                                          cx=160, cy=120),),

@@ -26,15 +26,16 @@ for n in names:
     importlib.import_module(n)
 for n in %r:
     assert pkg.__name__ + "." + n in names, n
-assert len(names) >= 46, names
+assert len(names) >= 48, names
 import sys
 lazy = sorted(m for m in sys.modules if m.split(".")[0] in ("cv2", "matplotlib"))
 assert not lazy, lazy
 """
 
 # the modules of the mono SLAM slice, of the vocabulary / dual-bootstrap
-# slice, of loop closing and of the user's surface must be among those
-# imported (the surface keeps cv2 and matplotlib inside its functions)
+# slice, of loop closing, of the user's surface and of the deployment
+# configuration (the C++ postings index, the readback handle) must be among
+# those imported (the surface keeps cv2 and matplotlib inside its functions)
 _SLAM_MODULES = ("models.map", "ops.epipolar", "ops.ransac", "optim.ba",
                  "optim.factors", "pipeline.ba_pack", "pipeline.local_mapping",
                  "pipeline.tracking", "pipeline.system", "utils.metrics",
@@ -42,7 +43,8 @@ _SLAM_MODULES = ("models.map", "ops.epipolar", "ops.ransac", "optim.ba",
                  "optim.scale_opt", "optim.pose_graph",
                  "pipeline.loop_closing", "optim.sim3_opt",
                  "utils.yaml_config", "utils.checkpoint", "utils.datasets",
-                 "viz.viewer", "viz.live", "tools", "run")
+                 "viz.viewer", "viz.live", "tools", "run", "native",
+                 "native.invfile", "utils.device")
 _IMPORT_PACKAGE = _IMPORT_PACKAGE % (_SLAM_MODULES,)
 
 _CHECK = """
@@ -87,12 +89,13 @@ def test_no_source_imports_jax_or_the_jax_package():
     """No import statement in the port or in chip_smoke.py, at module level
     or inside a function, names jax or the JAX package."""
     files = _sources()
-    assert len(files) >= 48
+    assert len(files) >= 50
     assert {"tracking.py", "system.py", "local_mapping.py", "ba.py", "ransac.py",
             "epipolar.py", "ba_pack.py", "map.py", "kfdb.py", "orbvoc.py",
             "scale_opt.py", "pose_graph.py", "loop_closing.py",
             "sim3_opt.py", "yaml_config.py", "checkpoint.py", "datasets.py",
-            "viewer.py", "live.py", "tools.py", "run.py"} <= \
+            "viewer.py", "live.py", "tools.py", "run.py", "invfile.py",
+            "device.py"} <= \
         {p.name for p in files}
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
@@ -110,11 +113,13 @@ def test_source_scan_sees_function_level_imports(tmp_path):
 
 
 def test_system_entry_point_runs_without_jax():
-    """The system's entry point, driven for three frames on the CPU in a
-    fresh interpreter, pulls in neither jax nor the JAX package (a lazy
-    import inside a method would show here and in the scan, not at import
-    time)."""
+    """The system's entry point, driven for five frames on the CPU in a
+    fresh interpreter, synchronously and then deferred (lag 1, so frames
+    are dispatched and read back a frame behind) with a flush(), pulls in
+    neither jax nor the JAX package (a lazy import inside a method would
+    show here and in the scan, not at import time)."""
     code = """
+import dataclasses
 import numpy as np, torch
 torch.set_num_threads(1)
 from orbslam2_dualcam_tpu_torch import CameraConfig, OrbConfig, SystemConfig
@@ -131,6 +136,14 @@ states = [s.track(synthetic.render_rig(world, K, T_sc, T, H=240, W=320), k / 30.
           for k, T in enumerate(poses[:5])]
 assert states[-1] == "OK", (states, s.tracker.events)
 assert s.map.n_keyframes >= 2 and s.mapper.timer.samples["triangulate"]
+cfg1 = dataclasses.replace(cfg, tracker=dataclasses.replace(cfg.tracker, pipeline_depth=1))
+d = System(cfg1, voc=None, enable_loop_closing=False, deferred_tracking=True,
+           device="cpu")
+for k, T in enumerate(poses[:5]):
+    d.track(synthetic.render_rig(world, K, T_sc, T, H=240, W=320), k / 30.0)
+assert d.tracker.deferred and d.tracker.timer.samples["fused_dispatch"]
+assert d.tracker.flush() == "OK", d.tracker.events
+assert max(t[0] for t in d.tracker.trajectory) == 4
 """
     proc = subprocess.run([sys.executable, "-c", code + _CHECK], cwd=ROOT,
                           env=dict(os.environ, PYTHONPATH=str(ROOT),

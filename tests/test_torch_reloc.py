@@ -33,6 +33,7 @@ from orbslam2_dualcam_tpu.pipeline import system as ref_system
 from orbslam2_dualcam_tpu.utils import config as ref_config
 from orbslam2_dualcam_tpu.utils import synthetic as ref_synthetic
 from orbslam2_dualcam_tpu.vocab import bow as ref_bow
+from orbslam2_dualcam_tpu_torch.models import kfdb as port_kfdb_mod
 from orbslam2_dualcam_tpu_torch.ops import camera
 from orbslam2_dualcam_tpu_torch.pipeline import local_mapping, tracking
 from orbslam2_dualcam_tpu_torch.utils.convert import (config_from_reference,
@@ -82,9 +83,10 @@ def build_world_and_map():
     import jax.numpy as jnp
     torch.set_num_threads(1)
     mp = pytest.MonkeyPatch()
-    # the pure-Python postings: their dict order breaks score ties, and the
-    # C++ index cannot be read back
+    # the pure-Python postings on both sides: their dict order breaks
+    # score ties, and the C++ index cannot be read back
     mp.setattr(ref_kfdb_mod, "NativeInvertedFile", None)
+    mp.setattr(port_kfdb_mod, "NativeInvertedFile", None)
     rcfg = _ref_cfg()
     world = ref_synthetic.make_box_world(np.random.default_rng(3), half=6.0)
     K = np.array([[260.0, 0, 160], [0, 260, 120], [0, 0, 1]])

@@ -275,7 +275,7 @@ def test_rebuild_kfdb_equals_reference_on_the_small_map():
     rdb = ref_kfdb_mod.KeyFrameDatabase(2, ref_voc.n_words, use_native=False)
     ref_ckpt.rebuild_kfdb(ref_map, rdb, ref_voc, 2)
     m = map_from_reference(ref_map)
-    db = KeyFrameDatabase(2, voc.n_words)
+    db = KeyFrameDatabase(2, voc.n_words, use_native=False)
     checkpoint.rebuild_kfdb(m, db, voc, 2)
     _assert_dbs_equal(db, rdb, m, ref_map, 2)
 
@@ -290,14 +290,14 @@ def test_rebuild_kfdb_on_a_restored_system_map(system_run, tmp_path):
     p = str(tmp_path / "map.npz")
     checkpoint.save_map(sys_.map, p)
     m = checkpoint.load_map(p)
-    db = KeyFrameDatabase(1, sys_.voc.n_words)
+    db = KeyFrameDatabase(1, sys_.voc.n_words, use_native=False)
     checkpoint.rebuild_kfdb(m, db, sys_.voc, 1)
-    # a culled keyframe leaves the postings of the words its vector weighs
-    # (KeyFrameDatabase.erase, as the reference's); a word of idf 0 keeps
-    # it, and no query can score it: compare over the live keyframes
-    live = set(m.keyframes)
-    for w, kids in sys_.kfdb.inverted[0].items():
-        assert db.inverted[0].get(w, set()) == kids & live, w
+    # the system's database is the C++ index, read word by word; its erase
+    # of a culled keyframe drops every posting the keyframe added
+    assert sys_.kfdb.native is not None
+    for w in range(sys_.voc.n_words):
+        kids = set(sys_.kfdb._shared_word_counts(np.array([w]), 0, set()))
+        assert db.inverted[0].get(w, set()) == kids, w
     assert set(db.bow[0]) == set(sys_.kfdb.bow[0]) == set(m.keyframes)
     for kid, vec in sys_.kfdb.bow[0].items():
         np.testing.assert_array_equal(db.bow[0][kid].words, vec.words)

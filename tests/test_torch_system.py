@@ -76,7 +76,10 @@ def _tiny_voc():
 @pytest.mark.parametrize("what,kwargs,names", [
     ("vocabulary", dict(voc="tiny", enable_loop_closing=False), None),
     ("loop closing", dict(voc="tiny", enable_loop_closing=True), None),
-    ("deferred", dict(deferred_tracking=True), "deferred-tracking slice"),
+    # ported with the deployment configuration: builds (the id keeps the
+    # slice's name)
+    pytest.param("deferred", dict(deferred_tracking=True), None,
+                 id="deferred-kwargs2-deferred-tracking slice"),
     # ported with the surface: builds (the id keeps the slice's name)
     pytest.param("viewer", dict(viewer=True), None,
                  id="viewer-kwargs3-surface"),
@@ -86,13 +89,21 @@ def test_system_stubs_raise_and_name_their_slice(what, kwargs, names):
     """What is not ported raises and names its slice; a vocabulary, with
     loop closing or without, is ported, and builds the keyframe database
     (and the loop closer, which the mapper calls); the viewer is ported, and
-    serves until shutdown."""
+    serves until shutdown; deferred tracking is ported, and builds the
+    pipelined tracker at the configured depth."""
     kw = dict(voc=None, enable_loop_closing=False, device="cpu")
     kw.update(kwargs)
     if kw["voc"] == "tiny":
         kw["voc"] = _tiny_voc()
     if names is None:
         sys_ = System(small_cfg(), **kw)
+        if kw.get("deferred_tracking"):
+            tr = sys_.tracker
+            assert tr.deferred and tr.map_lock is None
+            assert tr._depth == small_cfg().tracker.pipeline_depth == 3
+            assert tr._track_batch is not None
+            assert sys_.shutdown() is None and tr._pending is None
+            return
         if kw.get("viewer"):
             try:
                 assert sys_.viewer is not None and sys_.viewer.port > 0
@@ -117,7 +128,10 @@ def test_system_stubs_raise_and_name_their_slice(what, kwargs, names):
 @pytest.mark.parametrize("what,kwargs,names", [
     ("vocabulary", dict(voc="tiny"), None),
     ("keyframe database", dict(kfdb="db"), None),
-    ("deferred", dict(deferred=True), "deferred-tracking slice"),
+    # ported with the deployment configuration: builds (the id keeps the
+    # slice's name)
+    pytest.param("deferred", dict(deferred=True), None,
+                 id="deferred-kwargs2-deferred-tracking slice"),
     ("mesh", dict(mesh=object()), "distributed-BA slice"),
 ])
 def test_tracker_stubs_raise_and_name_their_slice(what, kwargs, names):
@@ -131,6 +145,19 @@ def test_tracker_stubs_raise_and_name_their_slice(what, kwargs, names):
     if names is None:
         tr = Tracker(cfg, make_rig(cfg, device="cpu"), **kwargs)
         assert tr.voc is kwargs.get("voc") and tr.kfdb is kwargs.get("kfdb")
+        depth = cfg.tracker.pipeline_depth
+        assert tr.deferred == bool(kwargs.get("deferred"))
+        assert tr._depth == (depth if tr.deferred else 1)
+        assert (tr._track_batch is not None) == tr.deferred
+        if tr.deferred:
+            # lag 1 builds no batched step; without the fused step there is
+            # nothing to defer
+            for d, fused, want in ((1, True, True), (3, False, False)):
+                c = dataclasses.replace(cfg, tracker=dataclasses.replace(
+                    cfg.tracker, pipeline_depth=d, fused_tracking=fused))
+                t = Tracker(c, make_rig(c, device="cpu"), deferred=True)
+                assert t.deferred == want and t._depth == (d if want else 1)
+                assert t._track_batch is None
         return
     with pytest.raises(NotImplementedError, match=names):
         Tracker(cfg, make_rig(cfg, device="cpu"), **kwargs)
