@@ -14,8 +14,11 @@ form (make_track_batch_fn), the monocular SLAM system
 system with a vocabulary (relocalization, the cross-camera bootstrap to a
 metric map), the system with loop closing (detection, Sim3 RANSAC and
 optimizer, correction, global BA), the video CLI with its settings,
-vocabulary and map files and the cloud tools, and the deployment
-configuration (deferred batched tracking with the mapping thread), at the reference's operating point:
+vocabulary and map files and the cloud tools, the deployment
+configuration (deferred batched tracking with the mapping thread), and
+distributed bundle adjustment (virtual meshes of shards of the card, a
+mesh-attached System, two processes in one gloo group), at the reference's
+operating point:
 2 x 640 x 480 frames, 1300 features per camera, 8 levels x 1.2, a 2048-slot
 map store and, for the step, a random vocabulary tree of ORBvoc's shape
 (k=10, depth 6).  Phases, each raising on failure:
@@ -133,7 +136,31 @@ map store and, for the step, a random vocabulary tree of ORBvoc's shape
      frames synchronously (mean, ATE), a lag-1 run (pipeline_depth 1,
      async) over the first 30 frames, and peak memory.  Phase 11 alone: python3 -c "import torch, chip_smoke as c;
      c._build.load_library(); c.phase_deployment(torch.device('cuda', 0),
-     c.card_line())".
+     c.card_line())";
+ 12. distributed BA (parallel/): (a) examples/bench_dist_ba.py's problem at
+     its defaults (256 keyframes in a ring, 32768 points seen 8 times each,
+     E = 262144) solved by ba.solve_ba and by solve_ba_distributed on
+     virtual meshes of 2 and 4 shards of the card, replicated and
+     point-sharded, each held to the single-device solve at
+     tests/test_dist_ba.py's bands (cost rtol 1e-3, poses atol 5e-4, points
+     atol 5e-3 point-sharded, per-edge chi2 row by row in the caller's
+     order), with ms per LM iteration of each; (b) phase 9's final map:
+     its packed (K, M, E), LoopCloser._global_ba once with a 4-shard mesh
+     attached (at the default threshold when E >= 16384, else forced with
+     dist_edge_threshold=1, and said so), its distributed solve held to
+     ba.solve_ba on the same packed problem at tests/test_dist_pipeline.py's
+     bands (cost rtol 2e-3, poses rtol 1e-2 atol 2e-3); (c) System(
+     dual_default(), voc=None, mesh=<2 shards of the card>) over 20 frames
+     of phase 7's orbit, ending OK with one K1 launch per call; (d) two
+     child processes, ranks of one gloo group (NCCL refuses two ranks on
+     one card), one shard each on the card, on (a)'s problem: equal costs,
+     within tests/test_multihost.py's 2e-3 of the in-process 2-shard solve;
+     (e) examples/eval_tum.py's evaluate over a 30-frame TUM-layout
+     sequence at 640x480 written to disk here, gated at <= 8 frames
+     untracked, >= 5 keyframes and phase 7's ATE band.  Phase 12 alone:
+     python3 -c "import torch, chip_smoke as c; c._build.load_library();
+     d = torch.device('cuda', 0); c.phase_dist(d, c.card_line(),
+     c.phase_loop(d, c.card_line())[1])".
 
 The last line of standard output is a JSON object with "ok": true; it is
 printed only when every phase passed.  There is no CPU path: without a
@@ -153,6 +180,7 @@ import numpy as np
 import torch
 
 from orbslam2_dualcam_tpu_torch import _build, dual_default
+from orbslam2_dualcam_tpu_torch.examples import bench_dist_ba, eval_tum
 from orbslam2_dualcam_tpu_torch.native import invfile
 from orbslam2_dualcam_tpu_torch.ops import fast_nms as k1
 from orbslam2_dualcam_tpu_torch.ops import ransac
@@ -160,6 +188,8 @@ from orbslam2_dualcam_tpu_torch.ops.camera import make_rig
 from orbslam2_dualcam_tpu_torch.ops.orb import _tables, build_pyramid, level_shapes
 from orbslam2_dualcam_tpu_torch.optim import (ba, pose_graph, pose_opt, scale_opt,
                                               sim3_opt)
+from orbslam2_dualcam_tpu_torch.parallel import dist_ba, runtime
+from orbslam2_dualcam_tpu_torch.parallel.runtime import Mesh
 from orbslam2_dualcam_tpu_torch.pipeline import frontend
 from orbslam2_dualcam_tpu_torch.pipeline.system import System
 from orbslam2_dualcam_tpu_torch.utils import metrics, synthetic
@@ -242,6 +272,18 @@ DEPLOY_MAX_MISSING = 5              # frames a run's trajectory may lack
 # script well inside its time limit)
 DEPLOY_SYNCMAP_FRAMES = 45
 DEPLOY_MAX_ATE_M = 0.35
+
+# phase 12, distributed BA: bench_dist_ba's problem at its defaults (a ring
+# of 256 keyframes, 32768 points seen 8 times each: E = 262144), the shard
+# counts of the virtual meshes, the LM iterations of every solve, the frames
+# of the mesh-attached system run and of the TUM-layout sequence, and the
+# wall timeout of the two ranks
+DIST_KF, DIST_MP, DIST_OBS = 256, 32768, 8
+DIST_SHARDS = (2, 4)
+DIST_ITERS = 10
+DIST_SYS_FRAMES = 20
+DIST_TUM_FRAMES = 30
+DIST_RANKS_TIMEOUT_S = 240
 
 
 def log(msg: str) -> None:
@@ -1313,8 +1355,9 @@ class LoopProbe:
         lc.on_new_keyframe, lc._correct_loop = self._on_kf, self._correct
 
 
-def phase_loop(device, card: str) -> int:
-    """Phase 9.  Returns K1's launches over the run."""
+def phase_loop(device, card: str):
+    """Phase 9.  Returns K1's launches over the run and the system, whose
+    final map phase 12 bundle-adjusts on a mesh."""
     cfg = loop_config()
     voc, frames, poses = loop_scene(cfg, device)
     sys_ = System(cfg, voc=voc, enable_loop_closing=True)
@@ -1381,7 +1424,7 @@ def phase_loop(device, card: str) -> int:
         problems.append(f"K1 launched {launches} times over {len(frames)} track calls")
     if problems:
         raise AssertionError("loop: " + "; ".join(problems))
-    return launches
+    return launches, sys_
 
 
 def rig_yaml(cfg) -> str:
@@ -1840,6 +1883,355 @@ def phase_deployment(device, card: str) -> dict:
     dep["alone"], dep["sync"], dep["lag1"], dep["readback"] = alone, sync, lag1, rb
     return dep
 
+
+# ---------------------------------------------------------------------------
+# phase 12: distributed bundle adjustment
+# ---------------------------------------------------------------------------
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def dist_problem(device, n_kf: int = DIST_KF, n_mp: int = DIST_MP):
+    """bench_dist_ba's problem (seed 0) on `device`, with the rig of its
+    observations."""
+    prob = bench_dist_ba.make_problem(np.random.default_rng(0), n_kf, n_mp,
+                                      DIST_OBS, device=device)
+    return prob, bench_dist_ba.problem_rig(device)
+
+
+def as_f64(prob, rig):
+    def f(x):
+        return x.double() if x.is_floating_point() else x
+    return (ba.BAProblem(*(type(x)(*map(f, x)) if isinstance(x, tuple) else f(x)
+                           for x in prob)), type(rig)(*map(f, rig)))
+
+
+def max_err(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def dist_case(res, single, E: int) -> dict:
+    """How far a distributed solve lies from the single-device one."""
+    return {"cost_rel": abs(float(res.cost) / float(single.cost) - 1),
+            "poses": max_err(res.poses, single.poses),
+            "points": max_err(res.points, single.points),
+            "chi2": float(((res.edge_chi2 - single.edge_chi2).abs() /
+                           (1e-2 + 1e-3 * single.edge_chi2.abs())).max()),
+            "shape_ok": tuple(res.edge_chi2.shape) == (E,)}
+
+
+def check_dist_solves(device, card: str, n_kf: int = DIST_KF,
+                      n_mp: int = DIST_MP) -> dict:
+    """(a) bench_dist_ba's problem solved by ba.solve_ba and by
+    solve_ba_distributed on virtual meshes of DIST_SHARDS shards of
+    `device` in both layouts, with ms per LM iteration of each (float32).
+
+    The check of the math is made in float64, where the solves differ only
+    by rounding: each distributed solve is held to the single-device one at
+    tests/test_dist_ba.py's bands (cost rtol 1e-3, poses atol 5e-4, points
+    atol 5e-3) with its per-edge chi2 row by row in the caller's order
+    (atol 1e-2 + rtol 1e-3).  In float32 this problem's solve moves with the
+    order of its sums (points seen once or twice, an LM that has not
+    converged in 10 steps): the single-device solve on a permutation of its
+    edge rows already lies outside those bands, so the float32 distributed
+    solves are printed beside that baseline and a second single-device run
+    (the card's sums are float atomics), not gated."""
+    prob, rig = dist_problem(device, n_kf, n_mp)
+    E = int(prob.edges.kf.shape[0])
+    p64, r64 = as_f64(prob, rig)
+    args32 = (prob, rig.T_sc, rig.adj_sc, rig.K)
+    args64 = (p64, r64.T_sc, r64.adj_sc, r64.K)
+    single = ba.solve_ba(*args32, iters=DIST_ITERS)
+    single64 = ba.solve_ba(*args64, iters=DIST_ITERS)
+    perm = torch.as_tensor(np.random.default_rng(5).permutation(E), device=device)
+    permuted = ba.solve_ba(prob._replace(edges=type(prob.edges)(
+        *(f[perm] for f in prob.edges))), *args32[1:], iters=DIST_ITERS)
+    again = ba.solve_ba(*args32, iters=DIST_ITERS)
+    base = {"permuted edges": dist_case(permuted, single, E),
+            "second run": dist_case(again, single, E)}
+    t_single = bench_dist_ba.ms_per_iter(
+        bench_dist_ba.solver(prob, rig, device, 0, ""), DIST_ITERS, device)
+    log(f"  (a) bench_dist_ba's problem K={n_kf} M={n_mp} E={E} on {device}, "
+        f"{DIST_ITERS} LM iterations: ba.solve_ba float32 cost "
+        f"{float(single.cost):.9g} (float64 {float(single64.cost):.9g}), "
+        f"{t_single:.3f} ms per LM iteration; float32 single-device baselines: " +
+        "; ".join(f"{k}: cost rel {v['cost_rel']:.3g}, max |dpose| {v['poses']:.3g}, "
+                  f"max |dpoint| {v['points']:.3g}" for k, v in base.items()) +
+        f" ({card})")
+    out = {"E": E, "single_ms": t_single, "single_cost": float(single.cost),
+           "baselines": base, "cases": []}
+    problems = []
+    for n in DIST_SHARDS:
+        for layout in bench_dist_ba.LAYOUTS:
+            sharded = layout == "sharded"
+            mesh = Mesh((device,) * n)
+            c64 = dist_case(dist_ba.solve_ba_distributed(
+                *args64, mesh, iters=DIST_ITERS, shard_points=sharded), single64, E)
+            res = dist_ba.solve_ba_distributed(*args32, mesh, iters=DIST_ITERS,
+                                               shard_points=sharded)
+            c = dict(dist_case(res, single, E), shards=n, layout=layout,
+                     cost=float(res.cost), f64=c64)
+            c["ms"] = bench_dist_ba.ms_per_iter(
+                bench_dist_ba.solver(prob, rig, device, n, layout), DIST_ITERS,
+                device)
+            out["cases"].append(c)
+            log(f"  (a) {n} shards of {device}, {layout}: {c['ms']:.3f} ms per LM "
+                f"iteration ({c['ms'] / t_single:.3f}x ba.solve_ba); float64 against "
+                f"ba.solve_ba: cost rel {c64['cost_rel']:.3g}, max |dpose| "
+                f"{c64['poses']:.3g}, max |dpoint| {c64['points']:.3g}, per-edge chi2 "
+                f"at {c64['chi2']:.3g} of its band; float32: cost {c['cost']:.9g} (rel "
+                f"{c['cost_rel']:.3g}), max |dpose| {c['poses']:.3g}, max |dpoint| "
+                f"{c['points']:.3g} ({card})")
+            if not (c64["cost_rel"] < 1e-3 and c64["poses"] < 5e-4 and
+                    c64["points"] < 5e-3 and c64["chi2"] <= 1 and c64["shape_ok"]
+                    and c["shape_ok"]):
+                problems.append(f"{n} shards {layout}: {c}")
+    if problems:
+        raise AssertionError("distributed BA against ba.solve_ba: " +
+                             "; ".join(problems))
+    return out
+
+
+def check_dist_pipeline(loop_sys, device, card: str) -> dict:
+    """(b) phase 9's final map: LoopCloser._global_ba once with a virtual
+    mesh of 4 shards attached, its distributed solve held to ba.solve_ba on
+    the same packed problem at tests/test_dist_pipeline.py's bands (cost
+    rtol 2e-3, poses rtol 1e-2 atol 2e-3).  At the default threshold when
+    the packed E reaches it (the natural routing), else forced with
+    dist_edge_threshold=1."""
+    lc = loop_sys.loop_closer
+    seen = {}
+    real_dist, real_auto = dist_ba.solve_ba_distributed, runtime.solve_ba_auto
+
+    def spy(prob, *args, **kwargs):
+        seen["prob"] = prob
+        seen["res"] = real_dist(prob, *args, **kwargs)
+        return seen["res"]
+
+    m = loop_sys.map
+    natural = None
+
+    def auto(prob, *args, **kwargs):
+        nonlocal natural
+        natural = prob.edges.kf.shape[0] >= runtime.DIST_EDGE_THRESHOLD
+        if not natural:
+            kwargs["dist_edge_threshold"] = 1
+        return real_auto(prob, *args, **kwargs)
+
+    lc.mesh = Mesh((device,) * 4)
+    dist_ba.solve_ba_distributed, runtime.solve_ba_auto = spy, auto
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        lc._global_ba()
+        _sync(device)
+        t_dist = 1e3 * (time.perf_counter() - t0)
+    finally:
+        dist_ba.solve_ba_distributed, runtime.solve_ba_auto = real_dist, real_auto
+        lc.mesh = None
+    if "res" not in seen:
+        raise AssertionError("LoopCloser._global_ba did not reach the distributed "
+                             "solver")
+    prob, res = seen["prob"], seen["res"]
+    K, M, E = (int(prob.poses.shape[0]), int(prob.points.shape[0]),
+               int(prob.edges.kf.shape[0]))
+    rig = lc.rig
+    _sync(device)
+    t0 = time.perf_counter()
+    one = ba.solve_ba(prob, rig.T_sc, rig.adj_sc, rig.K, iters=10)
+    _sync(device)
+    t_one = 1e3 * (time.perf_counter() - t0)
+    rel = abs(float(res.cost) / float(one.cost) - 1)
+    dp = float(((res.poses - one.poses).abs() /
+                (2e-3 + 1e-2 * one.poses.abs())).max())
+    log(f"  (b) phase 9's global BA: packed (K, M, E) = ({K}, {M}, {E}), "
+        f"{m.n_keyframes} keyframes; routing "
+        f"{'natural (E >= DIST_EDGE_THRESHOLD 16384)' if natural else 'FORCED with dist_edge_threshold=1 (E < 16384)'}; "
+        f"LoopCloser._global_ba on 4 shards of {device} {t_dist:.3f} ms, ba.solve_ba "
+        f"on the same problem {t_one:.3f} ms; cost {float(res.cost):.6g} against "
+        f"{float(one.cost):.6g} (rel {rel:.3g}); poses at {dp:.3g} of their band "
+        f"({card})")
+    if not (rel < 2e-3 and dp <= 1):
+        raise AssertionError(f"pipeline GBA on the mesh: cost rel {rel}, poses at "
+                             f"{dp} of the band")
+    if not all(np.isfinite(p.pos).all() for p in m.points.values()):
+        raise AssertionError("pipeline GBA on the mesh: a map point is not finite")
+    return {"K": K, "M": M, "E": E, "natural": natural, "ms": t_dist,
+            "single_ms": t_one, "cost_rel": rel}
+
+
+def run_mesh_system(device, card: str, n_frames: int = DIST_SYS_FRAMES) -> int:
+    """(c) System(dual_default(), voc=None, mesh=<2 shards of the device>)
+    over the first frames of phase 7's orbit: ends OK, one K1 launch per
+    call.  Returns K1's launches over the run."""
+    cfg = dual_default()
+    frames = system_frames(cfg, device)[0][:n_frames]
+    mesh = Mesh((device,) * 2)
+    sys_ = System(cfg, voc=None, mesh=mesh)
+    if sys_.tracker.mesh is not mesh:
+        raise AssertionError("System did not hand its mesh to the tracker")
+    _sync(device)
+    k1.fast_nms.launches = 0
+    states, ms, _ = drive(sys_, frames, "mesh-attached system")
+    launches = k1.fast_nms.launches
+    sys_.shutdown()
+    log(f"  (c) System(cfg, voc=None, mesh=2 shards of {device}) over {n_frames} "
+        f"frames of phase 7's orbit: last state {states[-1]}, "
+        f"{sys_.map.n_keyframes} keyframes, ms/call median {np.median(ms):.3f}; "
+        f"K1 launches {launches} ({card})")
+    if states[-1] != "OK" or launches != n_frames:
+        raise AssertionError(f"mesh-attached system: states {states}, K1 launched "
+                             f"{launches} times over {n_frames} calls")
+    return launches
+
+
+def dist_rank_main(argv) -> int:
+    """One rank of (d): `chip_smoke.py --dist-rank RANK PORT DEVICE N_KF N_MP`
+    joins a two-rank gloo group, solves bench_dist_ba's problem on a mesh of
+    one shard of DEVICE per rank and prints its cost and ms."""
+    import datetime
+    import torch.distributed as tdist
+    rank, port, device, n_kf, n_mp = (int(argv[0]), argv[1], torch.device(argv[2]),
+                                      int(argv[3]), int(argv[4]))
+    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                             world_size=2, rank=rank,
+                             timeout=datetime.timedelta(seconds=60))
+    try:
+        prob, rig = dist_problem(device, n_kf, n_mp)
+        mesh = Mesh((device,), group=tdist.group.WORLD)
+        args = (prob, rig.T_sc, rig.adj_sc, rig.K, mesh)
+        dist_ba.solve_ba_distributed(*args, iters=1)          # warm
+        _sync(device)
+        t0 = time.perf_counter()
+        res = dist_ba.solve_ba_distributed(*args, iters=DIST_ITERS)
+        cost = float(res.cost)
+        ms = 1e3 * (time.perf_counter() - t0)
+        print(f"RANK {rank} {cost!r} {ms:.3f} {float(res.edge_chi2.sum())!r}",
+              flush=True)
+    finally:
+        tdist.destroy_process_group()
+    return 0
+
+
+def run_two_ranks(device, card: str, want_cost: float, n_kf: int = DIST_KF,
+                  n_mp: int = DIST_MP) -> dict:
+    """(d) Two processes sharing the device, each a rank of a gloo group
+    with one shard, on the identical problem: both print the same cost, and
+    it matches the in-process 2-shard solve's `want_cost` within
+    tests/test_multihost.py's 2e-3."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--dist-rank", str(r), str(port), str(device),
+         str(n_kf), str(n_mp)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=DIST_RANKS_TIMEOUT_S)
+            if p.returncode != 0:
+                raise AssertionError(f"rank exited {p.returncode}: {err[-3000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    got = [ln.split() for out in outs for ln in out.splitlines()
+           if ln.startswith("RANK ")]
+    costs = [float(g[2]) for g in got]
+    ms = [float(g[3]) for g in got]
+    chi2 = [float(g[4]) for g in got]
+    rel = abs(costs[0] / want_cost - 1) if costs else float("inf")
+    log(f"  (d) two ranks of a gloo group on {device}, one shard each: costs "
+        f"{costs} (the in-process 2-shard solve {want_cost:.9g}, rel {rel:.3g}); "
+        f"per-edge chi2 sums {chi2}; {DIST_ITERS} LM iterations in {ms} ms "
+        f"({[t / DIST_ITERS for t in ms]} ms per iteration); both processes "
+        f"{wall:.1f} s wall ({card})")
+    if len(costs) != 2 or costs[0] != costs[1] or chi2[0] != chi2[1] or \
+            not rel < 2e-3:
+        raise AssertionError(f"two ranks: costs {costs}, chi2 {chi2}, rel {rel}")
+    return {"costs": costs, "rel": rel, "ms_per_iter": [t / DIST_ITERS for t in ms]}
+
+
+def write_tum_sequence(root, n: int) -> float:
+    """A TUM-layout sequence of camera 0 of dual_default() along phase 7's
+    orbit in its box room: rgb/<ts>.png, rgb.txt and groundtruth.txt (the
+    camera centres, as the reference's tests/test_eval_tum.py writes them).
+    Returns the path length."""
+    import cv2
+    cam = dual_default().cameras[0]
+    K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]])
+    world = synthetic.make_box_world(np.random.default_rng(42), half=6.0)
+    poses = synthetic.orbit_trajectory(n, radius=1.5,
+                                       total_angle=0.8 * math.pi * n / 45)
+    (root / "rgb").mkdir(parents=True, exist_ok=True)
+    rgb, gt, centres = [], [], []
+    for i, T in enumerate(poses):
+        ts = 1305031100.0 + i / 30.0
+        name = f"rgb/{ts:.6f}.png"
+        img = synthetic.render(world, K, T, H=cam.height, W=cam.width)
+        cv2.imwrite(str(root / name), np.clip(np.round(img), 0, 255).astype(np.uint8))
+        rgb.append(f"{ts:.6f} {name}")
+        c = np.linalg.inv(T)[:3, 3]
+        centres.append(c)
+        gt.append(f"{ts:.6f} {c[0]:.6f} {c[1]:.6f} {c[2]:.6f} 0 0 0 1")
+    (root / "rgb.txt").write_text("# color images\n" + "\n".join(rgb) + "\n")
+    (root / "groundtruth.txt").write_text("# ground truth\n" + "\n".join(gt) + "\n")
+    return float(np.linalg.norm(np.diff(np.asarray(centres), axis=0), axis=1).sum())
+
+
+def run_eval_tum(device, card: str, n: int = DIST_TUM_FRAMES) -> dict:
+    """(e) The port's eval_tum.evaluate over an n-frame TUM-layout sequence
+    at 640x480 written to disk here: at most 8 frames untracked, >= 5
+    keyframes, Sim3 ATE under phase 7's 9% of the path."""
+    import pathlib
+    import tempfile
+    cam = dual_default().cameras[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        path = write_tum_sequence(root, n)
+        t0 = time.perf_counter()
+        out = eval_tum.evaluate(str(root), intr=dict(fx=cam.fx, fy=cam.fy,
+                                                     cx=cam.cx, cy=cam.cy),
+                                device=device)
+        wall = time.perf_counter() - t0
+    ate = out.get("ate_sim3_m", float("inf"))
+    log(f"  (e) eval_tum.evaluate over {n} frames {cam.width}x{cam.height} written to disk: "
+        f"{out['n_tracked']} tracked, {out['n_kf']} keyframes, {out['n_loops']} "
+        f"loops, Sim3 ATE {ate:.4f} m on a path of {path:.3f} m, {wall:.1f} s "
+        f"with its vocabulary ({card})")
+    if out["n_tracked"] < n - 8 or out["n_kf"] < 5 or \
+            not ate < SYS_MAX_ATE_OF_PATH * path:
+        raise AssertionError(f"eval_tum: {out}")
+    out["path"], out["wall_s"] = path, wall
+    return out
+
+
+def phase_dist(device, card: str, loop_sys) -> dict:
+    """Phase 12: distributed BA on the card, (a)-(e).  Returns what was
+    measured, with K1's launches over the mesh-attached system run."""
+    t0 = time.perf_counter()
+    solves = check_dist_solves(device, card)
+    t_a = time.perf_counter() - t0
+    pipeline = check_dist_pipeline(loop_sys, device, card)
+    launches = run_mesh_system(device, card)
+    two = next(c["cost"] for c in solves["cases"]
+               if c["shards"] == 2 and c["layout"] == "replicated")
+    ranks = run_two_ranks(device, card, two)
+    tum = run_eval_tum(device, card)
+    log(f"  phase 12 split: (a) {t_a:.1f} s, the rest "
+        f"{time.perf_counter() - t0 - t_a:.1f} s")
+    return {"solves": solves, "pipeline": pipeline, "launches": launches,
+            "ranks": ranks, "tum": tum}
+
+
 def profile_system(device, card: str, n_warm: int = 8, n_prof: int = 5) -> None:
     """`--profile`: the synchronous system under torch.profiler for n_prof
     tracked frames after n_warm, and one 15-step local BA on the last
@@ -1919,6 +2311,8 @@ def profile_system(device, card: str, n_warm: int = 8, n_prof: int = 5) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--dist-rank"]:
+        return dist_rank_main(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
@@ -1933,14 +2327,14 @@ def main() -> int:
     # 1. card
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/11] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/12] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {name}, count {torch.cuda.device_count()}")
 
     # 2. build
     t0 = time.perf_counter()
     built = not _build.library_path().exists()
     _build.load_library()
-    log(f"[2/11] build: {'compiled' if built else 'cached'} "
+    log(f"[2/12] build: {'compiled' if built else 'cached'} "
         f"{_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
@@ -1953,14 +2347,14 @@ def main() -> int:
 
     # 3. K1 against its plain version
     k1_err = phase_k1(device)
-    log(f"[3/11] K1 agrees with its plain version at all level shapes, one level "
+    log(f"[3/12] K1 agrees with its plain version at all level shapes, one level "
         f"per launch and the pyramid in one launch (max |err| {k1_err})")
 
     # 4. the one-frame path at full width
     cfg = dual_default()
     t0 = time.perf_counter()
     scene = Scene(cfg, device)
-    log(f"[4/11] scene: {N_FRAMES} frames 2x{H}x{W}, {scene.n_feats} features/camera, "
+    log(f"[4/12] scene: {N_FRAMES} frames 2x{H}x{W}, {scene.n_feats} features/camera, "
         f"{int(scene.store.valid.sum())}/{scene.cap} store slots seeded, vocabulary "
         f"k=10 depth 6 ({sum(c.numel() * 4 for c in scene.voc.centroids) / 1e6:.1f} MB) "
         f"in {time.perf_counter() - t0:.1f} s")
@@ -1979,7 +2373,7 @@ def main() -> int:
     if batch_launches != DEPTH:
         raise AssertionError(f"K1 launched {batch_launches} times over a batch of "
                              f"{DEPTH} frames, expected 1 per frame")
-    log(f"[5/11] batched path: {DEPTH} frames equal the one-by-one run exactly; "
+    log(f"[5/12] batched path: {DEPTH} frames equal the one-by-one run exactly; "
         f"K1 launches {batch_launches} ({batch_launches / DEPTH:g} per frame)")
 
     # 6. timing
@@ -1987,7 +2381,7 @@ def main() -> int:
     t_span, spans = run_chain_with_spans(scene, device)
     t_rand = time_random(scene, device)
     med = float(np.median(t_rend))
-    log(f"[6/11] step ms/frame ({card}): rendered chain median {med:.3f} "
+    log(f"[6/12] step ms/frame ({card}): rendered chain median {med:.3f} "
         f"(min {min(t_rend):.3f}, max {max(t_rend):.3f}); random frames "
         f"(widened retry) median {np.median(t_rand):.3f} "
         f"(max {max(t_rand):.3f})")
@@ -2024,7 +2418,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sys_launches = phase_system(device, card)
-    log(f"[7/11] system: System.track initialized, tracked, mapped and bundle-"
+    log(f"[7/12] system: System.track initialized, tracked, mapped and bundle-"
         f"adjusted the orbit synchronously and with async_mapping; K1 launches "
         f"{sys_launches} over {SYS_FRAMES} track calls (1 per call); peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB; phase "
@@ -2035,7 +2429,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     dual_launches, dual = phase_dual(device, card)
-    log(f"[8/11] dual bootstrap: System(cfg, voc).track walked out, turned and came "
+    log(f"[8/12] dual bootstrap: System(cfg, voc).track walked out, turned and came "
         f"back, relocalized across cameras, scaled the map by the baseline and "
         f"reached FULL, synchronously and with async_mapping, and relocalized by "
         f"vocabulary after a forced loss; K1 launches {dual_launches} (1 per track "
@@ -2047,8 +2441,8 @@ def main() -> int:
     # 9. the loop at full width
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    loop_launches = phase_loop(device, card)
-    log(f"[9/11] loop: System(cfg, voc, enable_loop_closing=True).track went past a "
+    loop_launches, loop_sys = phase_loop(device, card)
+    log(f"[9/12] loop: System(cfg, voc, enable_loop_closing=True).track went past a "
         f"full turn, detected the loop, computed and optimized its Sim3, corrected "
         f"it and ran the global BA; K1 launches {loop_launches} (1 per track call); "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB; "
@@ -2061,7 +2455,7 @@ def main() -> int:
     t0 = time.perf_counter()
     ran = phase_run(device, card, dual)
     del dual
-    log(f"[10/11] run path: python3 -m orbslam2_dualcam_tpu_torch.run tracked "
+    log(f"[10/12] run path: python3 -m orbslam2_dualcam_tpu_torch.run tracked "
         f"{RUN_FRAMES} frames of a joint MJPG video with a settings file and a "
         f"vocabulary file and wrote its four artifacts; the map restored, its "
         f"database rebuilt, the cloud tools on its points; K1 launches "
@@ -2075,7 +2469,7 @@ def main() -> int:
     # mapping thread (bench.py's bench_end_to_end)
     t0 = time.perf_counter()
     dep = phase_deployment(device, card)
-    log(f"[11/11] deployment: System(cfg, voc, enable_loop_closing=False, "
+    log(f"[11/12] deployment: System(cfg, voc, enable_loop_closing=False, "
         f"async_mapping=True, deferred_tracking=True) tracked the {DEPLOY_FRAMES}-frame "
         f"orbit at pipeline_depth 3 with no DROPFRAME or LOST ({dep['events']['THIN@']} "
         f"THIN; none with synchronous mapping); trajectory {dep['n_traj']} frames, ATE "
@@ -2086,11 +2480,31 @@ def main() -> int:
         f"phase {time.perf_counter() - t0:.0f} s, total "
         f"{time.perf_counter() - t_start:.0f} s ({card})")
 
+    # 12. distributed BA: the solver at scale on virtual meshes, phase 9's
+    # global BA on a mesh, a mesh-attached System, two ranks sharing the
+    # card, eval_tum
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dist = phase_dist(device, card, loop_sys)
+    del loop_sys
+    pipe = dist["pipeline"]
+    log(f"[12/12] distributed BA: solve_ba_distributed on virtual meshes of "
+        f"{' and '.join(map(str, DIST_SHARDS))} shards of {device} in both layouts "
+        f"agreed with ba.solve_ba on E={dist['solves']['E']}; phase 9's global BA "
+        f"(K, M, E) = ({pipe['K']}, {pipe['M']}, {pipe['E']}) reached the "
+        f"distributed solver {'at the default threshold' if pipe['natural'] else 'only when forced'} "
+        f"and agreed; a mesh-attached System tracked (K1 launches "
+        f"{dist['launches']} over {DIST_SYS_FRAMES} track calls); two gloo ranks "
+        f"returned equal costs; eval_tum ATE {dist['tum']['ate_sim3_m']:.4f} m; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB; phase "
+        f"{time.perf_counter() - t0:.0f} s, total "
+        f"{time.perf_counter() - t_start:.0f} s ({card})")
+
     # launches: the one-frame chain's, the batch's, the synchronous mono
     # system run's, the synchronous dual walk's, the loop run's, the run
-    # path's and the deployment run's, each counted from 0 just before its
-    # path ran; times: the pyramid launch, as every path calls it, on the
-    # main path's own data
+    # path's, the deployment run's and the mesh-attached system's, each
+    # counted from 0 just before its path ran; times: the pyramid launch, as
+    # every path calls it, on the main path's own data
     print(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda",
         "source": "orbslam2_dualcam_tpu_torch/csrc/fast_nms.cu",
@@ -2101,6 +2515,7 @@ def main() -> int:
         "launches_loop_path": loop_launches,
         "launches_run_path": ran["launches"],
         "launches_deployment_path": dep["launches"],
+        "launches_dist_path": dist["launches"],
         "max_abs_err": k1_err,
         "ms": k["pyramid_device_ms"], "per_call_ms": k["pyramid_call_ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -82,6 +82,27 @@ def _inv(A: torch.Tensor) -> torch.Tensor:
     return torch.linalg.inv_ex(A).inverse
 
 
+def _damp(H: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """Marquardt damping: scale the diagonals of the blocks H [..., n, n]."""
+    d = torch.diagonal(H, dim1=-2, dim2=-1)
+    return H + torch.diag_embed(lam * d + 1e-8)
+
+
+def _cost(prob: BAProblem, T_sc, adj_sc, Ks, robust: bool,
+          delta2: float) -> torch.Tensor:
+    """The summed (Huber-robust when `robust`) cost over the unmasked edges,
+    matching what LM minimizes."""
+    _, _, _, _, chi2 = _build_system(prob, T_sc, adj_sc, Ks, False, delta2)
+    if robust:
+        rho = torch.where(
+            chi2 > delta2,
+            2.0 * torch.sqrt(delta2 * torch.clamp(chi2, min=0.0)) - delta2,
+            chi2)
+    else:
+        rho = chi2
+    return torch.where(_edge_mask(prob), rho, torch.zeros_like(rho)).sum()
+
+
 def solve_ba(prob: BAProblem, T_sc: torch.Tensor, adj_sc: torch.Tensor,
              Ks: torch.Tensor, iters: int, cfg: BAConfig = BAConfig(),
              cg_iters: int = 24, robust: bool = True) -> BAResult:
@@ -95,28 +116,13 @@ def solve_ba(prob: BAProblem, T_sc: torch.Tensor, adj_sc: torch.Tensor,
     delta2 = cfg.huber_delta ** 2
     ekf = prob.edges.kf
     emp = prob.edges.mp
-    emask = _edge_mask(prob)
     fixed = prob.pose_fixed[:, None]
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
 
     def cost_of(poses, points):
-        p2 = prob._replace(poses=poses, points=points)
-        _, _, _, _, chi2 = _build_system(p2, T_sc, adj_sc, Ks, False, delta2)
-        # robust cost: Huber rho for comparison, matching what LM minimizes
-        if robust:
-            rho = torch.where(
-                chi2 > delta2,
-                2.0 * torch.sqrt(delta2 * torch.clamp(chi2, min=0.0)) - delta2,
-                chi2)
-        else:
-            rho = chi2
-        return torch.where(emask, rho, torch.zeros_like(rho)).sum()
-
-    def damp(H, l):
-        # Marquardt: scale diagonals
-        d = torch.diagonal(H, dim1=-2, dim2=-1)
-        return H + torch.diag_embed(l * d + 1e-8)
+        return _cost(prob._replace(poses=poses, points=points), T_sc, adj_sc,
+                     Ks, robust, delta2)
 
     def lm_step(poses, points, lam, cost):
         p2 = prob._replace(poses=poses, points=points)
@@ -128,8 +134,8 @@ def solve_ba(prob: BAProblem, T_sc: torch.Tensor, adj_sc: torch.Tensor,
         # Hessian blocks
         Hpp = _segment_sum(torch.einsum('eri,e,erj->eij', Jp, w, Jp), ekf, K)
         Hll = _segment_sum(torch.einsum('eri,e,erj->eij', Jx, w, Jx), emp, M)
-        Hpp_d = damp(Hpp, lam)
-        Hll_inv = _inv(damp(Hll, lam) + 1e-9 * eye3)  # masked pts ~ eps I
+        Hpp_d = _damp(Hpp, lam)
+        Hll_inv = _inv(_damp(Hll, lam) + 1e-9 * eye3)  # masked pts ~ eps I
 
         # per-edge coupling W_e = Jp^T w Jx  (6x3); S v uses it matrix-free
         W_e = torch.einsum('eri,e,erj->eij', Jp, w, Jx)              # [E,6,3]

@@ -29,9 +29,10 @@ from orbslam2_dualcam_tpu_torch.models.map import (KeyFrame, Map,
                                                    update_point_stats)
 from orbslam2_dualcam_tpu_torch.ops import matching, ransac
 from orbslam2_dualcam_tpu_torch.ops.camera import CameraRig
-from orbslam2_dualcam_tpu_torch.optim import ba, pose_graph, sim3_opt
+from orbslam2_dualcam_tpu_torch.optim import pose_graph, sim3_opt
+from orbslam2_dualcam_tpu_torch.parallel import runtime
 from orbslam2_dualcam_tpu_torch.pipeline import ba_pack, frontend, local_mapping
-from orbslam2_dualcam_tpu_torch.utils.config import BAConfig, SystemConfig
+from orbslam2_dualcam_tpu_torch.utils.config import SystemConfig
 from orbslam2_dualcam_tpu_torch.utils.device import to_host, upload
 from orbslam2_dualcam_tpu_torch.utils.profiling import StageTimer
 from orbslam2_dualcam_tpu_torch.vocab import bow
@@ -47,8 +48,11 @@ class LoopCloser:
     callable (n_hyp, valid) -> idx [n_hyp, 3]."""
 
     def __init__(self, cfg: SystemConfig, rig: CameraRig, slam_map: Map,
-                 kfdb: KeyFrameDatabase, voc: bow.Vocabulary) -> None:
+                 kfdb: KeyFrameDatabase, voc: bow.Vocabulary,
+                 mesh=None) -> None:
+        """`mesh`: an optional parallel.runtime.Mesh for the global BA."""
         self.cfg = cfg
+        self.mesh = mesh
         self.rig = rig
         self.map = slam_map
         self.kfdb = kfdb
@@ -474,8 +478,8 @@ class LoopCloser:
 
     def _global_ba(self) -> None:
         """Global BA over every keyframe, 10 LM steps of 24 PCG iterations
-        with the default BA settings (the reference's
-        runtime.solve_ba_auto without a mesh is the single-device solver)."""
+        with the default BA settings, sharded over the closer's mesh when it
+        is large enough."""
         m = self.map
         kids = sorted(m.keyframes.keys())
         fixed = {m.origin_kid}
@@ -485,8 +489,8 @@ class LoopCloser:
             m, kids, fixed_kids=fixed,
             level_sigma2=np.asarray(self.cfg.orb.level_sigma2, np.float32),
             ncam=self.cfg.n_cameras, device=self.device)
-        res = ba.solve_ba(prob, self.rig.T_sc, self.rig.adj_sc, self.rig.K,
-                          iters=10, cfg=BAConfig(), cg_iters=24, robust=True)
+        res = runtime.solve_ba_auto(prob, self.rig.T_sc, self.rig.adj_sc,
+                                    self.rig.K, iters=10, mesh=self.mesh)
         ba_pack.unpack_result(m, res, all_kids, mids, meta,
                               chi2_th=self.cfg.ba.chi2_mono)
         # full-map writeback: invalidate stale concurrent local-BA

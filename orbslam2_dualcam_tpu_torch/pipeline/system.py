@@ -20,8 +20,9 @@ loops (detection, Sim3, correction, global BA).  `viewer=True` serves the
 live viewer (viz/live.py) over HTTP.  `deferred_tracking=True` pipelines
 the tracker (Tracker(deferred=True)); with `async_mapping=True` as well it
 is the deployment configuration, in which the tracker takes the map lock
-only around its map-touching host sections.  A device mesh is not ported
-yet and raises NotImplementedError.
+only around its map-touching host sections.  `mesh` (a
+parallel.runtime.Mesh) is handed to the tracker and the loop closer, whose
+global BAs shard a large problem over it.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from orbslam2_dualcam_tpu_torch.models.map import Map
 from orbslam2_dualcam_tpu_torch.ops import camera, lie
 from orbslam2_dualcam_tpu_torch.pipeline.local_mapping import LocalMapper
 from orbslam2_dualcam_tpu_torch.pipeline.loop_closing import LoopCloser
-from orbslam2_dualcam_tpu_torch.pipeline.tracking import Tracker, _waits
+from orbslam2_dualcam_tpu_torch.pipeline.tracking import Tracker
 from orbslam2_dualcam_tpu_torch.utils.config import SystemConfig
 from orbslam2_dualcam_tpu_torch.utils.device import resolve_device
 from orbslam2_dualcam_tpu_torch.vocab import bow
@@ -75,11 +76,24 @@ class System:
         2*depth-1 frames behind, and shutdown() flushes the frames in
         flight.
 
-        `mesh` is not ported yet and raises NotImplementedError."""
-        if mesh is not None:
-            raise _waits("distributed-BA", "System with a device mesh")
+        `mesh`: an optional parallel.runtime.Mesh; the global BAs (the
+        metric GBA of the dual bootstrap, the loop closer's) go through
+        runtime.solve_ba_auto with it, which shards problems of at least
+        DIST_EDGE_THRESHOLD edges.  A mesh whose process group has more
+        than one rank is refused: each rank would run the whole system, and
+        the runs drift apart in the last bit (BA's sums are float atomics
+        on the card), so their global BAs could be handed problems of
+        different shapes, and the reductions over them would hang."""
+        if mesh is not None and mesh.n_ranks > 1:
+            raise NotImplementedError(
+                f"System with a mesh over {mesh.n_ranks} processes: each "
+                f"would run the whole system, the runs drift apart in the "
+                f"last bit and their global BAs could reduce problems of "
+                f"different shapes; call parallel.dist_ba."
+                f"solve_ba_distributed with the identical problem on every "
+                f"rank instead")
         self.cfg = cfg
-        self.mesh = None
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.rig = camera.make_rig(cfg, device=self.device)
         self.map = Map()
@@ -93,7 +107,7 @@ class System:
         self.loop_closer = None
         if enable_loop_closing and voc is not None:
             self.loop_closer = LoopCloser(cfg, self.rig, self.map, self.kfdb,
-                                          voc)
+                                          voc, mesh=mesh)
         self.mapper = LocalMapper(cfg, self.rig, self.map,
                                   loop_closer=self.loop_closer,
                                   kfdb=self.kfdb, voc=voc)
@@ -115,7 +129,7 @@ class System:
         else:
             front = self.mapper
         self.tracker = Tracker(cfg, self.rig, voc, self.map, self.kfdb,
-                               local_mapper=front,
+                               local_mapper=front, mesh=mesh,
                                deferred=deferred_tracking)
         if async_mapping and self.tracker.deferred:
             # the tracker takes the lock itself, only around map-touching

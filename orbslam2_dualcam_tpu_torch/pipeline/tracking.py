@@ -18,8 +18,9 @@ state and its metric global BA; and the deferred mode
 (`Tracker(deferred=True)`): frames are dispatched with the pose, velocity
 and matched-slot carries left on the device, `pipeline_depth` frames per
 dispatch (make_track_batch_fn) or one (lag 1), and the previous dispatch's
-results are read back and processed while the new one runs.  A device
-mesh raises NotImplementedError.
+results are read back and processed while the new one runs.  With a
+mesh (parallel/runtime.Mesh) the metric global BA goes through
+`runtime.solve_ba_auto`, which shards a large problem over it.
 
 Host <-> device traffic per tracked frame: one pinned upload of the u8
 images, one pinned upload of the packed map store, and one readback of all
@@ -42,6 +43,7 @@ from orbslam2_dualcam_tpu_torch.models.map import (KeyFrame, Map,
 from orbslam2_dualcam_tpu_torch.ops import matching, ransac
 from orbslam2_dualcam_tpu_torch.ops.camera import CameraRig
 from orbslam2_dualcam_tpu_torch.optim import ba, scale_opt
+from orbslam2_dualcam_tpu_torch.parallel import runtime
 from orbslam2_dualcam_tpu_torch.pipeline import ba_pack, frontend
 from orbslam2_dualcam_tpu_torch.pipeline.loop_closing import \
     apply_sim3_correction
@@ -196,11 +198,6 @@ class DeviceMapStore:
         return out
 
 
-def _waits(slice_name: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it waits for the {slice_name} slice")
-
-
 class Tracker:
     NOT_INITIALIZED = "NOT_INITIALIZED"
     OK = "OK"
@@ -215,13 +212,12 @@ class Tracker:
                  deferred: bool = False) -> None:
         """Runs on the device the rig's tensors lie on (the vocabulary must
         lie there too).  `deferred=True` selects the pipelined mode when
-        the fused step is on (cfg.tracker.fused_tracking)."""
-        if mesh is not None:
-            raise _waits("distributed-BA", "Tracker with a device mesh")
+        the fused step is on (cfg.tracker.fused_tracking).  `mesh`: an
+        optional parallel.runtime.Mesh for the metric global BA."""
         self.cfg = cfg
         self.rig = rig
         self.device = rig.K.device
-        self.mesh = None
+        self.mesh = mesh
         self.voc = voc
         self.map = slam_map if slam_map is not None else Map()
         self.kfdb = kfdb
@@ -1889,8 +1885,7 @@ class Tracker:
 
     def _metric_gba(self, iters: int, cg_iters: int = 48) -> None:
         """Global BA over every keyframe with the gauge pinned at the scale
-        anchor (the reference's runtime.solve_ba_auto without a mesh is the
-        single-device solver)."""
+        anchor, sharded over the tracker's mesh when it is large enough."""
         m = self.map
         kids = sorted(m.keyframes.keys())
         fixed = {m.first_scale_kid} if m.first_scale_kid in m.keyframes \
@@ -1900,8 +1895,9 @@ class Tracker:
                 m, kids, fixed_kids=fixed,
                 level_sigma2=self.scale_factors ** 2,
                 ncam=self.cfg.n_cameras, device=self.device)
-            res = ba.solve_ba(prob, self.rig.T_sc, self.rig.adj_sc,
-                              self.rig.K, iters=iters, cg_iters=cg_iters)
+            res = runtime.solve_ba_auto(prob, self.rig.T_sc, self.rig.adj_sc,
+                                        self.rig.K, iters=iters,
+                                        cg_iters=cg_iters, mesh=self.mesh)
             ba_pack.unpack_result(m, res, all_kids, mids, meta,
                                   chi2_th=self.cfg.ba.chi2_mono)
         # every pose/point just moved: stale concurrent local-BA snapshots

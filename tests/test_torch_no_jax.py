@@ -26,16 +26,17 @@ for n in names:
     importlib.import_module(n)
 for n in %r:
     assert pkg.__name__ + "." + n in names, n
-assert len(names) >= 48, names
+assert len(names) >= 54, names
 import sys
 lazy = sorted(m for m in sys.modules if m.split(".")[0] in ("cv2", "matplotlib"))
 assert not lazy, lazy
 """
 
 # the modules of the mono SLAM slice, of the vocabulary / dual-bootstrap
-# slice, of loop closing, of the user's surface and of the deployment
-# configuration (the C++ postings index, the readback handle) must be among
-# those imported (the surface keeps cv2 and matplotlib inside its functions)
+# slice, of loop closing, of the user's surface, of the deployment
+# configuration (the C++ postings index, the readback handle) and of
+# distributed BA with its examples must be among those imported (the
+# surface and the examples keep cv2 and matplotlib inside their functions)
 _SLAM_MODULES = ("models.map", "ops.epipolar", "ops.ransac", "optim.ba",
                  "optim.factors", "pipeline.ba_pack", "pipeline.local_mapping",
                  "pipeline.tracking", "pipeline.system", "utils.metrics",
@@ -44,7 +45,9 @@ _SLAM_MODULES = ("models.map", "ops.epipolar", "ops.ransac", "optim.ba",
                  "pipeline.loop_closing", "optim.sim3_opt",
                  "utils.yaml_config", "utils.checkpoint", "utils.datasets",
                  "viz.viewer", "viz.live", "tools", "run", "native",
-                 "native.invfile", "utils.device")
+                 "native.invfile", "utils.device", "parallel",
+                 "parallel.runtime", "parallel.dist_ba", "examples",
+                 "examples.bench_dist_ba", "examples.eval_tum")
 _IMPORT_PACKAGE = _IMPORT_PACKAGE % (_SLAM_MODULES,)
 
 _CHECK = """
@@ -89,13 +92,14 @@ def test_no_source_imports_jax_or_the_jax_package():
     """No import statement in the port or in chip_smoke.py, at module level
     or inside a function, names jax or the JAX package."""
     files = _sources()
-    assert len(files) >= 50
+    assert len(files) >= 56
     assert {"tracking.py", "system.py", "local_mapping.py", "ba.py", "ransac.py",
             "epipolar.py", "ba_pack.py", "map.py", "kfdb.py", "orbvoc.py",
             "scale_opt.py", "pose_graph.py", "loop_closing.py",
             "sim3_opt.py", "yaml_config.py", "checkpoint.py", "datasets.py",
             "viewer.py", "live.py", "tools.py", "run.py", "invfile.py",
-            "device.py"} <= \
+            "device.py", "runtime.py", "dist_ba.py", "bench_dist_ba.py",
+            "eval_tum.py"} <= \
         {p.name for p in files}
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
@@ -114,12 +118,13 @@ def test_source_scan_sees_function_level_imports(tmp_path):
 
 def test_system_entry_point_runs_without_jax():
     """The system's entry point, driven for five frames on the CPU in a
-    fresh interpreter, synchronously and then deferred (lag 1, so frames
-    are dispatched and read back a frame behind) with a flush(), pulls in
-    neither jax nor the JAX package (a lazy import inside a method would
-    show here and in the scan, not at import time)."""
+    fresh interpreter, synchronously (its map's global BA then solved on a
+    2-shard mesh) and then deferred (lag 1, so frames are dispatched and
+    read back a frame behind) with a flush(), pulls in neither jax nor the
+    JAX package (a lazy import inside a method would show here and in the
+    scan, not at import time)."""
     code = """
-import dataclasses
+import dataclasses, sys
 import numpy as np, torch
 torch.set_num_threads(1)
 from orbslam2_dualcam_tpu_torch import CameraConfig, OrbConfig, SystemConfig
@@ -136,6 +141,15 @@ states = [s.track(synthetic.render_rig(world, K, T_sc, T, H=240, W=320), k / 30.
           for k, T in enumerate(poses[:5])]
 assert states[-1] == "OK", (states, s.tracker.events)
 assert s.map.n_keyframes >= 2 and s.mapper.timer.samples["triangulate"]
+from orbslam2_dualcam_tpu_torch.parallel import runtime
+from orbslam2_dualcam_tpu_torch.pipeline import ba_pack
+prob = ba_pack.pack_problem(s.map, sorted(s.map.keyframes), {s.map.origin_kid},
+                            np.asarray(cfg.orb.level_sigma2, np.float32), 1,
+                            device="cpu")[0]
+r = runtime.solve_ba_auto(prob, s.rig.T_sc, s.rig.adj_sc, s.rig.K, iters=2,
+                          mesh=runtime.Mesh(("cpu",) * 2), dist_edge_threshold=1)
+assert bool(torch.isfinite(r.cost)) and r.edge_chi2.shape == prob.edges.kf.shape
+assert "orbslam2_dualcam_tpu_torch.parallel.dist_ba" in sys.modules
 cfg1 = dataclasses.replace(cfg, tracker=dataclasses.replace(cfg.tracker, pipeline_depth=1))
 d = System(cfg1, voc=None, enable_loop_closing=False, deferred_tracking=True,
            device="cpu")

@@ -25,6 +25,7 @@ from orbslam2_dualcam_tpu.utils import config as ref_config
 from orbslam2_dualcam_tpu.utils import synthetic as ref_synthetic
 from orbslam2_dualcam_tpu_torch.models.map import Map
 from orbslam2_dualcam_tpu_torch.ops.camera import make_rig
+from orbslam2_dualcam_tpu_torch.parallel.runtime import Mesh
 from orbslam2_dualcam_tpu_torch.pipeline.system import System
 from orbslam2_dualcam_tpu_torch.pipeline.tracking import Tracker
 from orbslam2_dualcam_tpu_torch.utils.convert import config_from_reference
@@ -83,20 +84,29 @@ def _tiny_voc():
     # ported with the surface: builds (the id keeps the slice's name)
     pytest.param("viewer", dict(viewer=True), None,
                  id="viewer-kwargs3-surface"),
-    ("mesh", dict(mesh=object()), "distributed-BA slice"),
+    # ported with distributed BA: builds (the id keeps the slice's name)
+    pytest.param("mesh", dict(mesh="cpu mesh"), None,
+                 id="mesh-kwargs4-distributed-BA slice"),
 ])
 def test_system_stubs_raise_and_name_their_slice(what, kwargs, names):
     """What is not ported raises and names its slice; a vocabulary, with
     loop closing or without, is ported, and builds the keyframe database
     (and the loop closer, which the mapper calls); the viewer is ported, and
     serves until shutdown; deferred tracking is ported, and builds the
-    pipelined tracker at the configured depth."""
+    pipelined tracker at the configured depth; a mesh is ported, and is
+    handed to the tracker."""
     kw = dict(voc=None, enable_loop_closing=False, device="cpu")
     kw.update(kwargs)
     if kw["voc"] == "tiny":
         kw["voc"] = _tiny_voc()
+    if kw.get("mesh") == "cpu mesh":
+        kw["mesh"] = Mesh(("cpu", "cpu"))
     if names is None:
         sys_ = System(small_cfg(), **kw)
+        if kw.get("mesh") is not None:
+            assert sys_.mesh is sys_.tracker.mesh is kw["mesh"]
+            assert sys_.mesh.size == 2
+            return
         if kw.get("deferred_tracking"):
             tr = sys_.tracker
             assert tr.deferred and tr.map_lock is None
@@ -132,7 +142,9 @@ def test_system_stubs_raise_and_name_their_slice(what, kwargs, names):
     # slice's name)
     pytest.param("deferred", dict(deferred=True), None,
                  id="deferred-kwargs2-deferred-tracking slice"),
-    ("mesh", dict(mesh=object()), "distributed-BA slice"),
+    # ported with distributed BA: builds (the id keeps the slice's name)
+    pytest.param("mesh", dict(mesh="cpu mesh"), None,
+                 id="mesh-kwargs3-distributed-BA slice"),
 ])
 def test_tracker_stubs_raise_and_name_their_slice(what, kwargs, names):
     from orbslam2_dualcam_tpu_torch.models.kfdb import KeyFrameDatabase
@@ -142,9 +154,12 @@ def test_tracker_stubs_raise_and_name_their_slice(what, kwargs, names):
         kwargs["voc"] = _tiny_voc()
     if kwargs.get("kfdb") == "db":
         kwargs["kfdb"] = KeyFrameDatabase(cfg.n_cameras, 16)
+    if kwargs.get("mesh") == "cpu mesh":
+        kwargs["mesh"] = Mesh(("cpu",) * 4)
     if names is None:
         tr = Tracker(cfg, make_rig(cfg, device="cpu"), **kwargs)
         assert tr.voc is kwargs.get("voc") and tr.kfdb is kwargs.get("kfdb")
+        assert tr.mesh is kwargs.get("mesh")
         depth = cfg.tracker.pipeline_depth
         assert tr.deferred == bool(kwargs.get("deferred"))
         assert tr._depth == (depth if tr.deferred else 1)
