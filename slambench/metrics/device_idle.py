@@ -1,0 +1,9 @@
+"""device_idle: the share of the traced window in which no kernel or copy
+ran on the card (one minus the union of the device intervals), in percent."""
+
+
+def read(run):
+    t = run.trace
+    if not t or t["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
