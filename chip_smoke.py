@@ -791,6 +791,11 @@ def drive(sys_, frames, label: str, period_ms: float = 0.0, k0: int = 0):
     return states, ms, n_events
 
 
+def span_ms(sys_, name: str) -> list:
+    """Milliseconds of each of the system's spans named `name`, in order."""
+    return [1e-6 * (s.t1_ns - s.t0_ns) for s in sys_.tracer.spans() if s.name == name]
+
+
 def log_stage_timers(sys_, label: str, card: str) -> None:
     for who, timer in (("tracker", sys_.tracker.timer), ("mapper", sys_.mapper.timer)):
         log(f"  {label} ({card}) {who} stages (host wall clock):\n    " +
@@ -836,21 +841,25 @@ def run_system(cfg, frames, centres, path, label: str, card: str,
             f"ms/call median "
             f"{np.median(tracked):.3f} (min {min(tracked):.3f}, max "
             f"{max(tracked):.3f}); two_view_init ms "
-            f"{[round(x, 3) for x in tr.two_view_ms]}")
+            f"{[round(ms, 3) for ms in span_ms(sys_, 'tracker.two_view')]}")
     log(f"  {label}: events {tr.events}")
     log_stage_timers(sys_, label, card)
     by_bucket = {}
-    for shape, t0, t1 in mp.ba_shapes:
-        by_bucket.setdefault(shape, []).append(1e3 * (t1 - t0))
+    for s in sys_.tracer.spans():
+        if s.name == "ba.solve":
+            by_bucket.setdefault(s.attrs["shape"], []).append(1e-6 * (s.t1_ns - s.t0_ns))
     log(f"  {label} ({card}): local BA ms per call by (K, M, E) bucket: " +
         "; ".join(f"{shape}: n {len(v)}, median {np.median(v):.3f}"
                   for shape, v in sorted(by_bucket.items())))
     if async_mapping:
         # how much of the mapping thread's BA time ran while a track call
         # was in progress (both threads queue on one stream)
+        spans = sys_.tracer.spans()
+        ba_iv = [(s.t0_ns * 1e-9, s.t1_ns * 1e-9) for s in spans if s.name == "ba.solve"]
+        fr_iv = [(s.t0_ns * 1e-9, s.t1_ns * 1e-9) for s in spans if s.name == "system.track"]
         both = sum(max(0.0, min(b1, f1) - max(b0, f0))
-                   for b0, b1 in mp.ba_intervals for f0, f1 in sys_.frame_intervals)
-        ba_total = sum(b1 - b0 for b0, b1 in mp.ba_intervals)
+                   for b0, b1 in ba_iv for f0, f1 in fr_iv)
+        ba_total = sum(b1 - b0 for b0, b1 in ba_iv)
         log(f"  {label} ({card}): local BA ran {ba_total:.3f} s in all, "
             f"{both:.3f} s of it ({both / max(ba_total, 1e-9):.4f}) while a "
             f"track call was in progress")
@@ -1634,7 +1643,7 @@ def phase_run(device, card: str, dual: dict | None = None) -> dict:
         cap.release()
         sys_.shutdown()
         run.write_artifacts(sys_, str(out_run))
-        ms = [1e3 * (b - a) for a, b in sys_.frame_intervals]
+        ms = span_ms(sys_, "system.track")
         if launches != n or n != RUN_FRAMES:
             problems.append(f"K1 launched {launches} times over {n} track calls "
                             f"({RUN_FRAMES} frames)")
@@ -1665,7 +1674,7 @@ def phase_run(device, card: str, dual: dict | None = None) -> dict:
         tracked = [t for k, t in enumerate(ms) if k >= 3]
         p8 = dual["ms"][3:RUN_FRAMES] if dual["ms"] else [float("nan")]
         log(f"  run in process ({card}): System.track over the decoded video, "
-            f"ms/call (host clock of System.frame_intervals) median "
+            f"ms/call (host clock of the system.track spans) median "
             f"{np.median(tracked):.3f} (min {min(tracked):.3f}, max {max(tracked):.3f}) "
             f"over calls 3-{RUN_FRAMES - 1}; phase 8's synchronous walk over the same "
             f"frames (host clock between synchronizations) median {np.median(p8):.3f} "

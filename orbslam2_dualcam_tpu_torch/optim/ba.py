@@ -32,6 +32,7 @@ from orbslam2_dualcam_tpu_torch.ops import lie
 from orbslam2_dualcam_tpu_torch.optim import factors
 from orbslam2_dualcam_tpu_torch.optim.factors import Edges
 from orbslam2_dualcam_tpu_torch.utils.config import BAConfig
+from orbslam2_dualcam_tpu_torch.utils.profiling import span
 
 
 class BAProblem(NamedTuple):
@@ -226,25 +227,36 @@ def solve_ba_chunked(prob: BAProblem, T_sc, adj_sc, Ks, iters: int,
     else.
 
     The LM damping restarts per chunk (accept/reject inside solve_ba keeps
-    each chunk monotone, so a restart only costs a few inner iterations)."""
-    done = 0
-    res = None
-    cur = prob
-    while done < iters:
-        n = min(chunk, iters - done)
-        if unlock is not None:
-            unlock()
-        try:
-            step = solve_ba(cur, T_sc, adj_sc, Ks, iters=n, cfg=cfg,
-                            cg_iters=cg_iters, robust=robust)
-            if step.poses.device.type == "cuda":
-                torch.cuda.current_stream(step.poses.device).synchronize()
-        finally:
-            if relock is not None:
-                relock()
-        res = step
-        cur = cur._replace(poses=step.poses, points=step.points)
-        done += n
-        if should_abort is not None and done < iters and should_abort():
-            break
-    return res
+    each chunk monotone, so a restart only costs a few inner iterations).
+    The call is a span `ba.solve` with the padded (K, M, E) as `shape`;
+    each chunk's wait a span `device.wait` of kind `ba_chunk`."""
+    with span("ba.solve", shape=padded_shape(prob)):
+        done = 0
+        res = None
+        cur = prob
+        while done < iters:
+            n = min(chunk, iters - done)
+            if unlock is not None:
+                unlock()
+            try:
+                step = solve_ba(cur, T_sc, adj_sc, Ks, iters=n, cfg=cfg,
+                                cg_iters=cg_iters, robust=robust)
+                with span("device.wait", kind="ba_chunk"):
+                    if step.poses.device.type == "cuda":
+                        torch.cuda.current_stream(
+                            step.poses.device).synchronize()
+            finally:
+                if relock is not None:
+                    relock()
+            res = step
+            cur = cur._replace(poses=step.poses, points=step.points)
+            done += n
+            if should_abort is not None and done < iters and should_abort():
+                break
+        return res
+
+
+def padded_shape(prob: BAProblem) -> tuple:
+    """(K, M, E): the problem's padded pose, point and edge counts."""
+    return (int(prob.poses.shape[0]), int(prob.points.shape[0]),
+            int(prob.edges.kf.shape[0]))

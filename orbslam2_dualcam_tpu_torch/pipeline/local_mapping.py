@@ -29,7 +29,7 @@ from orbslam2_dualcam_tpu_torch.optim import ba
 from orbslam2_dualcam_tpu_torch.pipeline import ba_pack, frontend
 from orbslam2_dualcam_tpu_torch.utils.config import SystemConfig
 from orbslam2_dualcam_tpu_torch.utils.device import to_host, upload
-from orbslam2_dualcam_tpu_torch.utils.profiling import StageTimer
+from orbslam2_dualcam_tpu_torch.utils.profiling import StageTimer, span
 from orbslam2_dualcam_tpu_torch.vocab import bow
 
 
@@ -48,7 +48,7 @@ class LocalMapper:
                                              device=self.device)
         # host copies, read once: every later read would wait for the card
         self._T_sc_np = rig.T_sc.cpu().numpy()
-        self.timer = StageTimer()
+        self.timer = StageTimer("mapper")
         self.recent_mids: List[int] = []     # candidates for culling
         self.n_triangulated = 0
         self.n_fused = 0
@@ -67,43 +67,50 @@ class LocalMapper:
         # async-pipeline hooks (set by pipeline/system.py): interrupt_check
         # aborts local BA between chunks when a new KF is queued; map_lock
         # is released during each chunk's device solve (LocalMapping.cc:
-        # 97-108 InterruptBA semantics); ba_intervals records (t0, t1) of
-        # each local-BA solve for the overlap test
+        # 97-108 InterruptBA semantics)
         self.interrupt_check = None
         self.map_lock = None
-        self.ba_intervals: List[tuple] = []
-        # ((K, M, E) padded sizes, t0, t1) of each local-BA solve, and the
-        # last solve's (problem, result)
+        # (K, M, E) padded sizes of each local-BA solve, and the last
+        # solve's (problem, result); the solves' times are `ba.solve` spans
         self.ba_shapes: List[tuple] = []
         self.last_ba = None
 
     # ------------------------------------------------------------------
     def on_new_keyframe(self, kf: KeyFrame, run_ba: bool = True) -> None:
-        m = self.map
-        t0, f0, c0 = self.n_triangulated, self.n_fused, self.n_culled_kf
-        m.update_connections(kf)
-        self._cull_recent_points(kf)
-        with self.timer("triangulate"):
-            self._create_new_points(kf)
-        with self.timer("fuse"):
-            self._fuse_neighbors(kf)
-        with self.timer("cross_cam"):
-            self._search_cross_cameras(kf)
-        for mid in kf.mp_idx[kf.mp_idx >= 0]:
-            mp = m.points.get(int(mid))
-            if mp is not None:
-                update_point_stats(mp, m, self._T_sc_np, self.scale_factors)
-        m.update_connections(kf)
-        if run_ba and m.n_keyframes > 2:
-            with self.timer("local_ba"):
-                self._local_ba(kf)
-        self._cull_keyframes(kf)
-        self.kf_log = getattr(self, "kf_log", [])
-        self.kf_log.append((kf.kid, self.n_triangulated - t0,
-                            self.n_fused - f0, self.n_culled_kf - c0,
-                            len(self.map.covisible_kfs(kf))))
-        if self.loop_closer is not None:
-            self.loop_closer.on_new_keyframe(kf)
+        """LocalMapping::Run's body for one keyframe; the root span
+        `mapper.keyframe` on the mapping thread, inside `tracker.keyframe`
+        otherwise."""
+        with span("mapper.keyframe", frame=kf.frame_id):
+            m = self.map
+            t0, f0, c0 = self.n_triangulated, self.n_fused, self.n_culled_kf
+            with span("mapper.connections"):
+                m.update_connections(kf)
+            with span("mapper.cull"):
+                self._cull_recent_points(kf)
+            with self.timer("triangulate"):
+                self._create_new_points(kf)
+            with self.timer("fuse"):
+                self._fuse_neighbors(kf)
+            with self.timer("cross_cam"):
+                self._search_cross_cameras(kf)
+            with span("mapper.connections"):
+                for mid in kf.mp_idx[kf.mp_idx >= 0]:
+                    mp = m.points.get(int(mid))
+                    if mp is not None:
+                        update_point_stats(mp, m, self._T_sc_np,
+                                           self.scale_factors)
+                m.update_connections(kf)
+            if run_ba and m.n_keyframes > 2:
+                with self.timer("local_ba"):
+                    self._local_ba(kf)
+            with span("mapper.cull"):
+                self._cull_keyframes(kf)
+            self.kf_log = getattr(self, "kf_log", [])
+            self.kf_log.append((kf.kid, self.n_triangulated - t0,
+                                self.n_fused - f0, self.n_culled_kf - c0,
+                                len(self.map.covisible_kfs(kf))))
+            if self.loop_closer is not None:
+                self.loop_closer.on_new_keyframe(kf)
 
     # ------------------------------------------------------------------
     def _cull_recent_points(self, kf: KeyFrame) -> None:
@@ -448,8 +455,6 @@ class LocalMapper:
         # solver drops `map_lock` while each LM chunk executes on-device so
         # the tracking thread keeps the map, and stops early when a new
         # keyframe is waiting (the reference's InterruptBA -> mbAbortBA).
-        import time as _time
-        t0 = _time.monotonic()
         epoch0 = m.geometry_epoch
         res = ba.solve_ba_chunked(
             prob, self.rig.T_sc, self.rig.adj_sc, self.rig.K,
@@ -458,7 +463,6 @@ class LocalMapper:
             should_abort=self.interrupt_check,
             unlock=self.map_lock.release if self.map_lock else None,
             relock=self.map_lock.acquire if self.map_lock else None)
-        self.ba_intervals.append((t0, _time.monotonic()))
         if m.geometry_epoch != epoch0:
             # a map-wide transform (metric rescale, Sim3 loop correction)
             # landed while the lock was released: this solve's snapshot is
@@ -473,10 +477,7 @@ class LocalMapper:
         self.ba_log.append((kf.kid, len(all_kids), len(mids), len(meta),
                             float(res.cost), n_erased))
         self.last_ba = (prob, res)
-        self.ba_shapes.append((tuple(prob.poses.shape[:1]) +
-                               tuple(prob.points.shape[:1]) +
-                               tuple(prob.edges.kf.shape), t0,
-                               self.ba_intervals[-1][1]))
+        self.ba_shapes.append(ba.padded_shape(prob))
 
     # ------------------------------------------------------------------
     def _cull_keyframes(self, kf: KeyFrame) -> None:

@@ -71,7 +71,7 @@ class LoopCloser:
         # host copies, read once: every later read would wait for the card
         self._K_np = to_host((rig.K,))[0].astype(np.float64)
         self.debug_log: List[str] = []
-        self.timer = StageTimer()
+        self.timer = StageTimer("loop")
 
     # ------------------------------------------------------------------
     def on_new_keyframe(self, kf: KeyFrame) -> None:

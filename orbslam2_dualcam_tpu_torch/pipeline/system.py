@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 
@@ -43,6 +43,7 @@ from orbslam2_dualcam_tpu_torch.pipeline.loop_closing import LoopCloser
 from orbslam2_dualcam_tpu_torch.pipeline.tracking import Tracker
 from orbslam2_dualcam_tpu_torch.utils.config import SystemConfig
 from orbslam2_dualcam_tpu_torch.utils.device import resolve_device
+from orbslam2_dualcam_tpu_torch.utils.profiling import SpanRecorder, span
 from orbslam2_dualcam_tpu_torch.vocab import bow
 
 
@@ -113,7 +114,9 @@ class System:
                                   kfdb=self.kfdb, voc=voc)
         self._async = async_mapping
         self.map_lock = threading.Lock()
-        self.frame_intervals: List[tuple] = []   # (t0, t1) per track() call
+        # the spans of the tracker, the mapper and the loop closer
+        # (utils/profiling.py); current in track() and on the mapping thread
+        self.tracer = SpanRecorder()
         if async_mapping:
             self._kf_queue: "queue.Queue" = queue.Queue()
             self._stop = threading.Event()
@@ -153,36 +156,39 @@ class System:
         """Per-frame entry (System::TrackDual, System.cc:153-180).
         images: [ncam, H, W] uint8/float grayscale (uint8 preferred: it
         uploads 4x fewer bytes; float inputs are quantized to u8 at the
-        device boundary either way, Tracker._stage_images)."""
+        device boundary either way, Tracker._stage_images).  The call is
+        the root span `system.track` of `self.tracer`, with the submitted
+        frame's id."""
         images = np.asarray(images)
-        import time as _time
-        t0 = _time.monotonic()
-        try:
-            if self._async and not self.tracker.deferred:
-                with self.map_lock:
-                    return self.tracker.process(images, timestamp)
-            # synchronous mapping, or the deferred tracker, which holds the
-            # lock only around its map-touching host sections
-            return self.tracker.process(images, timestamp)
-        finally:
-            self.frame_intervals.append((t0, _time.monotonic()))
-            if self.viewer is not None:
-                self.viewer.update(
-                    images, self.tracker.last, self.tracker.state,
-                    self.map, self._T_sc_host,
-                    reloc_T_cw=self.tracker.last_reloc_cam_pose)
+        with self.tracer.activate(), \
+                span("system.track", frame=self.tracker.frame_id):
+            try:
+                if self._async and not self.tracker.deferred:
+                    with self.map_lock:
+                        return self.tracker.process(images, timestamp)
+                # synchronous mapping, or the deferred tracker, which holds
+                # the lock only around its map-touching host sections
+                return self.tracker.process(images, timestamp)
+            finally:
+                if self.viewer is not None:
+                    self.viewer.update(
+                        images, self.tracker.last, self.tracker.state,
+                        self.map, self._T_sc_host,
+                        reloc_T_cw=self.tracker.last_reloc_cam_pose)
 
     def _mapping_loop(self) -> None:
-        while not self._stop.is_set():
-            try:
-                kf, run_ba = self._kf_queue.get(timeout=0.05)
-            except queue.Empty:
-                continue
-            with self.map_lock:
-                self.mapper.on_new_keyframe(kf, run_ba=run_ba)
+        with self.tracer.activate():
+            while not self._stop.is_set():
+                try:
+                    kf, run_ba = self._kf_queue.get(timeout=0.05)
+                except queue.Empty:
+                    continue
+                with self.map_lock:
+                    self.mapper.on_new_keyframe(kf, run_ba=run_ba)
 
     def shutdown(self) -> None:
-        self.tracker.flush()
+        with self.tracer.activate(), span("system.shutdown"):
+            self.tracker.flush()
         if self.viewer is not None:
             self.viewer.close()
             self.viewer = None

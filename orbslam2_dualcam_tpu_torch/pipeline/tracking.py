@@ -50,7 +50,7 @@ from orbslam2_dualcam_tpu_torch.pipeline.loop_closing import \
 from orbslam2_dualcam_tpu_torch.utils.config import SystemConfig
 from orbslam2_dualcam_tpu_torch.utils.device import (Readback, resolve_device,
                                                       to_host, upload)
-from orbslam2_dualcam_tpu_torch.utils.profiling import StageTimer
+from orbslam2_dualcam_tpu_torch.utils.profiling import StageTimer, span
 from orbslam2_dualcam_tpu_torch.vocab import bow
 
 
@@ -97,7 +97,8 @@ class _Staging:
     def begin(self) -> np.ndarray:
         """The buffer as numpy, free to be rewritten."""
         if self._done is not None:
-            self._done.synchronize()
+            with span("device.wait", kind="staging"):
+                self._done.synchronize()
         return self.np
 
     def send(self) -> torch.Tensor:
@@ -307,13 +308,12 @@ class Tracker:
         # scale-carrying observations (see _maybe_metric_refresh)
         self._xedges_at_gba: int = 0
         # diagnostics
-        self.timer = StageTimer()
+        self.timer = StageTimer("tracker")
         self.trajectory: List[Tuple] = []
         self.events: List[str] = []
         self.n_fused_frames = 0      # frames whose pose came from the fused step
         self.n_stepped_frames = 0    # frames tracked by the host-stepped cascade
         self.n_pose_opt_calls = 0    # optimize_pose calls of the host-stepped path
-        self.two_view_ms: List[float] = []
 
     def reset_state(self) -> None:
         """Clear every per-run field (Tracking::Reset, Tracking.cc:1863-
@@ -629,46 +629,48 @@ class Tracker:
         (used when a deferred batch's device carry chain is invalid:
         extraction is carry-independent, so the frame is still fully
         recoverable)."""
-        frame = self._pull(fd_h, ts, frame_id=fid)
-        ok = False
-        if self.state in (self.OK, self.FULL):
-            with self.timer("track"):
-                ok = self._track(frame)
-        if not ok:
-            self._relocalize_after_loss(frame)
-        self._record_trajectory(frame, ts)
-        self.last = frame
+        with span("tracker.frame", frame=fid, path="host"):
+            frame = self._pull(fd_h, ts, frame_id=fid)
+            ok = False
+            if self.state in (self.OK, self.FULL):
+                with self.timer("track"):
+                    ok = self._track(frame)
+            if not ok:
+                self._relocalize_after_loss(frame)
+            self._record_trajectory(frame, ts)
+            self.last = frame
 
     def _process_one(self, fd_h: list, out_h, ts: float, fid: int,
                      slot_mids: np.ndarray) -> bool:
         """Full host-side processing of one read-back frame.  Returns
         True iff the frame was cleanly accepted on the fused path (i.e.
         the device carry chain remains valid)."""
-        frame = self._pull(fd_h, ts, frame_id=fid)
-        n1 = int(out_h.n_stage1)
-        n_final = int(out_h.n_final)
-        if n1 < self.cfg.tracker.min_matches_motion:
-            self.events.append(f"THIN@{fid} n1={n1} nf={n_final}")
-        with self.timer("track"):
-            # accept on a healthy stage-1 OR a stage-2 rescue: the local-
-            # map rematch re-optimized against the FULL store, so a thin
-            # motion-model start with a solid final count is a good frame;
-            # only a thin FINAL count falls back to the host cascade (the
-            # synchronous path's rule, _track, accepts stage 1 alone)
-            ok = ((n1 >= self.cfg.tracker.min_matches_motion
-                   or n_final >= self.cfg.tracker.min_matches_motion)
-                  and self._finish_fused(frame, out_h, slot_mids))
-            if not ok and self.state in (self.OK, self.FULL):
-                # host fallback cascade on the materialized frame before
-                # declaring LOST (same order as the sync path)
-                ok = self._track(frame)
-        clean = ok and frame.T_cw is not None and np.allclose(
-            frame.T_cw, np.asarray(out_h.T_cw, np.float64), atol=1e-5)
-        if not ok:
-            self._relocalize_after_loss(frame)
-        self._record_trajectory(frame, ts)
-        self.last = frame
-        return clean and self.state in (self.OK, self.FULL)
+        with span("tracker.frame", frame=fid, path="fused"):
+            frame = self._pull(fd_h, ts, frame_id=fid)
+            n1 = int(out_h.n_stage1)
+            n_final = int(out_h.n_final)
+            if n1 < self.cfg.tracker.min_matches_motion:
+                self.events.append(f"THIN@{fid} n1={n1} nf={n_final}")
+            with self.timer("track"):
+                # accept on a healthy stage-1 OR a stage-2 rescue: the local-
+                # map rematch re-optimized against the FULL store, so a thin
+                # motion-model start with a solid final count is a good frame;
+                # only a thin FINAL count falls back to the host cascade (the
+                # synchronous path's rule, _track, accepts stage 1 alone)
+                ok = ((n1 >= self.cfg.tracker.min_matches_motion
+                       or n_final >= self.cfg.tracker.min_matches_motion)
+                      and self._finish_fused(frame, out_h, slot_mids))
+                if not ok and self.state in (self.OK, self.FULL):
+                    # host fallback cascade on the materialized frame before
+                    # declaring LOST (same order as the sync path)
+                    ok = self._track(frame)
+            clean = ok and frame.T_cw is not None and np.allclose(
+                frame.T_cw, np.asarray(out_h.T_cw, np.float64), atol=1e-5)
+            if not ok:
+                self._relocalize_after_loss(frame)
+            self._record_trajectory(frame, ts)
+            self.last = frame
+            return clean and self.state in (self.OK, self.FULL)
 
     def flush(self) -> str:
         """Drain the deferred pipeline: process the in-flight frames (call
@@ -707,7 +709,7 @@ class Tracker:
         buffered, self._batch = self._batch, []
         self._carry = None
         for img, ts, fid in buffered:
-            with self._lock():
+            with self._lock(), span("tracker.frame", frame=fid, path="sync"):
                 self._process_sync(img, ts, fid=fid)
 
     def _to_u8(self, images: np.ndarray) -> np.ndarray:
@@ -808,22 +810,19 @@ class Tracker:
 
     def _two_view(self, uv1: np.ndarray, uv2: np.ndarray) -> ransac.TwoViewResult:
         """two_view_init on the device; the result's leaves come back as
-        numpy after one wait."""
-        import time
-        cfg = self.cfg
-        t0 = time.perf_counter()
-        valid = torch.ones(len(uv1), dtype=torch.bool, device=self.device)
-        idx_h, idx_f = self.two_view_sampler(cfg.init.ransac_iters, valid)
-        tv = ransac.two_view_solve(
-            idx_h.to(self.device), idx_f.to(self.device),
-            upload(uv1.astype(np.float32), self.device),
-            upload(uv2.astype(np.float32), self.device), valid,
-            self.rig.K[0], sigma=cfg.init.sigma,
-            min_parallax_deg=cfg.init.min_parallax_deg,
-            min_triangulated=cfg.init.min_triangulated)
-        tv = ransac.TwoViewResult(*to_host(tv))
-        self.two_view_ms.append(1e3 * (time.perf_counter() - t0))
-        return tv
+        numpy after one wait; a span `tracker.two_view`."""
+        with span("tracker.two_view"):
+            cfg = self.cfg
+            valid = torch.ones(len(uv1), dtype=torch.bool, device=self.device)
+            idx_h, idx_f = self.two_view_sampler(cfg.init.ransac_iters, valid)
+            tv = ransac.two_view_solve(
+                idx_h.to(self.device), idx_f.to(self.device),
+                upload(uv1.astype(np.float32), self.device),
+                upload(uv2.astype(np.float32), self.device), valid,
+                self.rig.K[0], sigma=cfg.init.sigma,
+                min_parallax_deg=cfg.init.min_parallax_deg,
+                min_triangulated=cfg.init.min_triangulated)
+            return ransac.TwoViewResult(*to_host(tv))
 
     def _create_initial_map(self, f0: HostFrame, f1: HostFrame,
                             rows0: np.ndarray, rows1: np.ndarray,
@@ -1203,33 +1202,34 @@ class Tracker:
     def _local_map_points(self, frame: HostFrame) -> np.ndarray:
         """UpdateLocalKeyFrames/Points (Tracking.cc:1707-1860): KFs sharing
         observations with the current frame + their covisible neighbours;
-        all their points."""
-        counts: Dict[int, int] = {}
-        for mid in frame.mp_ids[frame.mp_ids >= 0]:
-            mp = self.map.points.get(int(mid))
-            if mp is None:
-                continue
-            for kid in mp.obs:
-                counts[kid] = counts.get(kid, 0) + 1
-        if not counts:
-            return np.empty(0, np.int64)
-        local_kids = sorted(counts, key=counts.get, reverse=True)
-        local_kids = local_kids[:self.cfg.tracker.local_kf_limit]
-        extra = []
-        for kid in local_kids[:10]:
-            kf = self.map.keyframes.get(kid)
-            if kf is not None:
-                extra.extend(self.map.covisible_kfs(kf, 10))
-        seen = set()
-        mids: List[int] = []
-        for kid in local_kids + extra:
-            kf = self.map.keyframes.get(kid)
-            if kf is None or kid in seen:
-                continue
-            seen.add(kid)
-            for mid in kf.mp_idx[kf.mp_idx >= 0]:
-                mids.append(int(mid))
-        return np.unique(np.asarray(mids, np.int64))
+        all their points.  A span `tracker.local_map`."""
+        with span("tracker.local_map"):
+            counts: Dict[int, int] = {}
+            for mid in frame.mp_ids[frame.mp_ids >= 0]:
+                mp = self.map.points.get(int(mid))
+                if mp is None:
+                    continue
+                for kid in mp.obs:
+                    counts[kid] = counts.get(kid, 0) + 1
+            if not counts:
+                return np.empty(0, np.int64)
+            local_kids = sorted(counts, key=counts.get, reverse=True)
+            local_kids = local_kids[:self.cfg.tracker.local_kf_limit]
+            extra = []
+            for kid in local_kids[:10]:
+                kf = self.map.keyframes.get(kid)
+                if kf is not None:
+                    extra.extend(self.map.covisible_kfs(kf, 10))
+            seen = set()
+            mids: List[int] = []
+            for kid in local_kids + extra:
+                kf = self.map.keyframes.get(kid)
+                if kf is None or kid in seen:
+                    continue
+                seen.add(kid)
+                for mid in kf.mp_idx[kf.mp_idx >= 0]:
+                    mids.append(int(mid))
+            return np.unique(np.asarray(mids, np.int64))
 
     def _update_ref_kid(self, frame: HostFrame) -> None:
         counts: Dict[int, int] = {}
@@ -1327,30 +1327,33 @@ class Tracker:
         return kf
 
     def _create_keyframe(self, frame: HostFrame) -> KeyFrame:
-        kf = self._make_keyframe(frame, frame.T_cw)
-        ncam, N = frame.valid.shape
-        for c in range(ncam):
-            for row in np.nonzero(frame.mp_ids[c] >= 0)[0]:
-                mid = int(frame.mp_ids[c][row])
-                mp = self.map.points.get(mid)
-                if mp is None or mp.is_bad:
-                    continue
-                g = c * N + int(row)
-                # the obs-membership guard matters when one point matched
-                # rows in TWO cameras of this frame: a second
-                # add_observation would overwrite mp.obs[kid] and leave
-                # the first row's mp_idx dangling forever
-                if kf.mp_idx[g] < 0 and kf.kid not in mp.obs:
-                    self.map.add_observation(mp, kf, g, c)
-        self.map.update_connections(kf)
-        self.ref_kid = kf.kid
-        self.last_kf_frame_id = frame.frame_id
-        self.events.append(f"KF@{frame.frame_id} kid={kf.kid}")
-        if self.kfdb is not None:
-            self._kfdb_add(kf)
-        if self.local_mapper is not None:
-            self.local_mapper.on_new_keyframe(kf)
-        return kf
+        """A keyframe of `frame`, handed to the mapper (synchronous: its
+        work inside this call); a span `tracker.keyframe`."""
+        with span("tracker.keyframe"):
+            kf = self._make_keyframe(frame, frame.T_cw)
+            ncam, N = frame.valid.shape
+            for c in range(ncam):
+                for row in np.nonzero(frame.mp_ids[c] >= 0)[0]:
+                    mid = int(frame.mp_ids[c][row])
+                    mp = self.map.points.get(mid)
+                    if mp is None or mp.is_bad:
+                        continue
+                    g = c * N + int(row)
+                    # the obs-membership guard matters when one point matched
+                    # rows in TWO cameras of this frame: a second
+                    # add_observation would overwrite mp.obs[kid] and leave
+                    # the first row's mp_idx dangling forever
+                    if kf.mp_idx[g] < 0 and kf.kid not in mp.obs:
+                        self.map.add_observation(mp, kf, g, c)
+            self.map.update_connections(kf)
+            self.ref_kid = kf.kid
+            self.last_kf_frame_id = frame.frame_id
+            self.events.append(f"KF@{frame.frame_id} kid={kf.kid}")
+            if self.kfdb is not None:
+                self._kfdb_add(kf)
+            if self.local_mapper is not None:
+                self.local_mapper.on_new_keyframe(kf)
+            return kf
 
     def _anchor_cross_reloc(self, frame: HostFrame) -> None:
         """Promote a PRE-scale cross-reloc frame to a keyframe and remember

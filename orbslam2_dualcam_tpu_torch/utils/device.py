@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from orbslam2_dualcam_tpu_torch.utils.profiling import span
+
 
 def resolve_device(device=None) -> torch.device:
     """`device` as a torch.device with its index filled in; None is the
@@ -28,13 +30,16 @@ def resolve_device(device=None) -> torch.device:
 
 def upload(a, device) -> torch.Tensor:
     """numpy array -> tensor on `device`; uint32 descriptor words keep
-    their bits as int32 (torch has no arithmetic on uint32)."""
+    their bits as int32 (torch has no arithmetic on uint32).  A span
+    `device.upload` with its `bytes`: from pageable memory the copy may
+    block the host."""
     import numpy as np
 
     a = np.ascontiguousarray(a)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
-    return torch.as_tensor(a).to(device, non_blocking=True)
+    with span("device.upload", bytes=a.nbytes):
+        return torch.as_tensor(a).to(device, non_blocking=True)
 
 
 def to_host(tensors) -> list:
@@ -68,9 +73,13 @@ class Readback:
         self._arrays = [b.numpy() for b in bufs]
 
     def wait(self) -> list:
-        if self._event is not None:
-            # releases the interpreter lock while it waits, so the mapping
-            # thread runs meanwhile
-            self._event.synchronize()
-            self._event = None
+        """A span `device.wait` of kind `readback`, on the CPU too (where
+        it waits for nothing), so that a run counts its readbacks alike
+        on either device."""
+        with span("device.wait", kind="readback"):
+            if self._event is not None:
+                # releases the interpreter lock while it waits, so the
+                # mapping thread runs meanwhile
+                self._event.synchronize()
+                self._event = None
         return self._arrays

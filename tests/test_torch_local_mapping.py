@@ -224,8 +224,8 @@ def test_on_new_keyframe_equals_reference(setup):
     (wk, w_nkf, w_nmp, w_ne, w_cost, w_er), = want.ba_log
     assert (gk, g_nkf, g_nmp, g_ne, g_er) == (wk, w_nkf, w_nmp, w_ne, w_er)
     np.testing.assert_allclose(g_cost, w_cost, rtol=1e-3)
-    assert got.ba_shapes[0][0] == (ba_pack._bucket(g_nkf, 8), ba_pack._bucket(g_nmp, 256),
-                                   ba_pack._bucket(g_ne, 1024))
+    assert got.ba_shapes[0] == (ba_pack._bucket(g_nkf, 8), ba_pack._bucket(g_nmp, 256),
+                                ba_pack._bucket(g_ne, 1024))
     a, b = map_snapshot(pm), map_snapshot(rm)
     assert a["keyframes"].keys() == b["keyframes"].keys()
     assert a["points"].keys() == b["points"].keys()
