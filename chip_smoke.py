@@ -126,7 +126,9 @@ map store and, for the step, a random vocabulary tree of ORBvoc's shape
      >= 85 frames in the trajectory after shutdown(), Sim3 ATE under
      0.35 m (THIN@ counted: with the mapper on its own thread the store a
      batch is dispatched against lags the map, and stage 1 of a batch's
-     first frame thins now and then); then the same deferred pipeline with
+     first frame thins now and then; the tracker waits for the mapping
+     thread to triangulate a batch's keyframes before it re-packs its
+     store); then the same deferred pipeline with
      synchronous mapping, gated as that file gates the deferred mode alone
      (no DROPFRAME@, THIN@ or LOST@, the trajectory, the ATE) over the
      first 45 frames; every run
@@ -420,10 +422,26 @@ def phase_k1(device) -> float:
     return worst
 
 
-def run_chain(scene: Scene, device):
-    """Chain frames 1-11 on the card.  Returns the per-frame (FrameData,
+def graph_counts(**steps) -> str:
+    """The fused steps' CUDA graph use (frontend.GraphedStep): captures,
+    replays and eager calls of each, and failed captures."""
+    return ", ".join(
+        f"{name} captures/replays/eager {s.captures}/{s.replays}/{s.eager}" +
+        (f" ({len(s.failures)} failed captures: {s.failures})" if s.failures else "")
+        for name, s in steps.items() if s is not None)
+
+
+def tracker_graphs(sys_) -> str:
+    tr = sys_.tracker
+    return graph_counts(step=tr._track_fused, batch=tr._track_batch)
+
+
+def run_chain(scene: Scene, device, step_fn=None):
+    """Chain frames 1-11 on the card through `step_fn` (the scene's
+    graphed step by default).  Returns the per-frame (FrameData,
     FusedTrackOut), the ms of each step (CUDA events around each call) and
     K1's launch count over the chain (set to 0 just before it)."""
+    step_fn = scene.step if step_fn is None else step_fn
     mp = scene.store_tensors(device)
     T, V, slots = scene.initial_state(device)
     on = torch.ones(2, dtype=torch.bool, device=device)
@@ -432,7 +450,7 @@ def run_chain(scene: Scene, device):
 
     def step():
         nonlocal T, V, slots
-        fd, o = scene.step(next(frames), T, V, slots, on, *mp)
+        fd, o = step_fn(next(frames), T, V, slots, on, *mp)
         T, V, slots = o.T_cw, o.V_new, o.mp_slots
         outs.append((fd, o))
 
@@ -492,9 +510,9 @@ def cross_check_cpu(scene: Scene, card_out) -> None:
 
 
 def check_no_host_sync(scene: Scene, device) -> None:
-    """One step under CUDA's sync debug mode "error": an operation that
-    synchronizes the host with the card raises instead of running (what a
-    CUDA graph capture of the step will need)."""
+    """One step's body (eager) and one replay of its graph under CUDA's sync
+    debug mode "error": an operation that synchronizes the host with the
+    card raises instead of running."""
     mp = scene.store_tensors(device)
     T, V, slots = scene.initial_state(device)
     on = torch.ones(2, dtype=torch.bool, device=device)
@@ -502,11 +520,13 @@ def check_no_host_sync(scene: Scene, device) -> None:
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
+        scene.step.body(img, T, V, slots, on, *mp)
         scene.step(img, T, V, slots, on, *mp)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    log("  one step ran with no host synchronization (sync debug mode: error)")
+    log("  one step (eager) and one replay of its graph ran with no host "
+        "synchronization (sync debug mode: error)")
 
 
 def batch_args(scene: Scene, device):
@@ -518,10 +538,49 @@ def batch_args(scene: Scene, device):
     return (images, T, V, slots, on, *scene.store_tensors(device))
 
 
+def count_k1_on_replays(scene: Scene, device, n: int = 3) -> int:
+    """K1's kernels in the card's own trace (torch.profiler) over n replays
+    of the one-frame step's graph and one replay of the batch's, held
+    against the frames (one K1 per frame) and against `fast_nms.launches`
+    over the same calls, which a replay advances by the launches its
+    capture saw (a replay runs no Python).  Returns the traced count."""
+    from torch.profiler import ProfilerActivity, profile
+    if not (scene.step.captures and scene.batch.captures):
+        raise AssertionError(f"no graph to replay: "
+                             f"{graph_counts(step=scene.step, batch=scene.batch)}")
+    T, V, slots = scene.initial_state(device)
+    on = torch.ones(2, dtype=torch.bool, device=device)
+    mp = scene.store_tensors(device)
+    img = torch.as_tensor(scene.frames[1], device=device)
+    args = batch_args(scene, device)
+    replays = (scene.step.replays, scene.batch.replays)
+    torch.cuda.synchronize()
+    c0 = k1.fast_nms.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            scene.step(img, T, V, slots, on, *mp)
+        scene.batch(*args)
+        torch.cuda.synchronize()
+    counted = k1.fast_nms.launches - c0
+    traced = sum(e.count for e in prof.key_averages()
+                 if "fast_nms_pyramid_kernel" in e.key)
+    frames = n + DEPTH
+    if (scene.step.replays - replays[0], scene.batch.replays - replays[1]) != (n, 1):
+        raise AssertionError(f"the calls were not all replays: "
+                             f"{graph_counts(step=scene.step, batch=scene.batch)}")
+    if traced != frames or counted != frames:
+        raise AssertionError(f"K1 over {n} step replays and a batch replay of {DEPTH} "
+                             f"frames: {traced} in the trace, {counted} counted, "
+                             f"expected {frames}")
+    return traced
+
+
 def check_batch(scene: Scene, device, single) -> int:
     """The batched path against the same frames run one by one (`single`,
-    phase 4's outputs): same kernels in the same order, so every output is
-    held exactly equal.  Returns K1's launches over the batch."""
+    phase 4's outputs, replays of the one-frame graph): same kernels in the
+    same order, so every output is held exactly equal; the batch's first
+    call runs eagerly, its second captures and replays its graph, held
+    equal to the first.  Returns K1's launches over the first batch."""
     args = batch_args(scene, device)
     torch.cuda.synchronize()
     k1.fast_nms.launches = 0
@@ -551,14 +610,23 @@ def check_batch(scene: Scene, device, single) -> int:
     if not all(torch.equal(c, x) for c, x in
                zip(carry, (last.T_cw, last.V_new, last.mp_slots))):
         raise AssertionError("the batch's final carry is not its last frame's")
+    again = scene.batch(*args)
+    if scene.batch.captures != 1 or not all(
+            torch.equal(a, b) for a, b in zip(
+                [*again[0], *again[1].feats, *again[2]],
+                [*carry, *fds.feats, *outs])):
+        raise AssertionError(f"the batch's graph differs from its eager call "
+                             f"({graph_counts(batch=scene.batch)})")
     torch.cuda.set_sync_debug_mode("error")
     try:
+        scene.batch.body(*args)
         scene.batch(*args)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    log(f"  a batch of {DEPTH} frames ran with no host synchronization "
-        f"(sync debug mode: error)")
+    log(f"  a batch of {DEPTH} frames (eager) and a replay of its graph ran with "
+        f"no host synchronization (sync debug mode: error); its graph's outputs "
+        f"equal its eager call's; {graph_counts(batch=scene.batch)}")
     return launches
 
 
@@ -630,7 +698,8 @@ def run_chain_with_spans(scene: Scene, device):
     for (mod, attr, key), fn in zip(patched, saved):
         setattr(mod, attr, timed(fn, spans[key]))
     try:
-        _, ms, _ = run_chain(scene, device)
+        # the body, eagerly: a graph's replay calls no Python
+        _, ms, _ = run_chain(scene, device, scene.step.body)
     finally:
         for (mod, attr, _), fn in zip(patched, saved):
             setattr(mod, attr, fn)
@@ -841,7 +910,8 @@ def run_system(cfg, frames, centres, path, label: str, card: str,
             f"ms/call median "
             f"{np.median(tracked):.3f} (min {min(tracked):.3f}, max "
             f"{max(tracked):.3f}); two_view_init ms "
-            f"{[round(ms, 3) for ms in span_ms(sys_, 'tracker.two_view')]}")
+            f"{[round(ms, 3) for ms in span_ms(sys_, 'tracker.two_view')]}; "
+            f"{tracker_graphs(sys_)}")
     log(f"  {label}: events {tr.events}")
     log_stage_timers(sys_, label, card)
     by_bucket = {}
@@ -1116,6 +1186,7 @@ def run_dual(cfg, voc, frames, poses, label: str, card: str,
             ev[n_events[k - 1] if k else 0:n_events[k]])), None)
         if k is not None:
             log(f"  {label} ({card}): the {name} call (frame {k}) took {ms[k]:.3f} ms")
+    log(f"  {label} ({card}): {tracker_graphs(sys_)}")
     log(f"  {label}: events {[e for e in ev if not e.startswith('KF@')]}")
     log(f"  {label}: mapper events (last 12) {mp.events[-12:]}")
     log_stage_timers(sys_, label, card)
@@ -1402,7 +1473,7 @@ def phase_loop(device, card: str):
     if other:
         log(f"  loop ({card}): System.track over {len(other)} tracked calls without a "
             f"closing: ms/call median {np.median(other):.3f} (min {min(other):.3f}, max "
-            f"{max(other):.3f})")
+            f"{max(other):.3f}); {tracker_graphs(sys_)}")
     for c in probe.closings:
         st, ev = c["stages_ms"], c["events_ms"]
         log(f"  loop ({card}): the closing call (frame {c['frame']}) took "
@@ -1678,7 +1749,7 @@ def phase_run(device, card: str, dual: dict | None = None) -> dict:
             f"{np.median(tracked):.3f} (min {min(tracked):.3f}, max {max(tracked):.3f}) "
             f"over calls 3-{RUN_FRAMES - 1}; phase 8's synchronous walk over the same "
             f"frames (host clock between synchronizations) median {np.median(p8):.3f} "
-            f"(min {min(p8):.3f}, max {max(p8):.3f}); last state "
+            f"(min {min(p8):.3f}, max {max(p8):.3f}); {tracker_graphs(sys_)}; last state "
             f"{sys_.tracker.state}; events "
             f"{[e for e in sys_.tracker.events if not e.startswith('KF@')][:12]}")
         if problems:
@@ -1778,7 +1849,11 @@ def run_deployment(cfg, voc, frames, poses, label: str, card: str, deferred: boo
     log(f"  {label} ({card}): ms per track call over calls {warm}-{len(ms) - 1} "
         f"(host clock, no synchronization): mean {r['mean']:.3f}, p90 {r['p90']:.3f}, "
         f"median {r['median']:.3f}, fps from the mean {1e3 / r['mean']:.3f}; "
-        f"shutdown (flush) {shutdown_ms:.3f} ms")
+        f"shutdown (flush) {shutdown_ms:.3f} ms; {tracker_graphs(sys_)}")
+    waits = span_ms(sys_, "tracker.mapper_wait")
+    if waits:
+        log(f"  {label}: the tracker waited for the mapping thread's new points "
+            f"{len(waits)} times, {sum(waits):.3f} ms in all (max {max(waits):.3f})")
     log(f"  {label}: trajectory {len(common)} of {len(frames)} frames, Sim3 ATE "
         f"{ate:.4f} m; K1 launches {launches} over {len(frames)} track calls "
         f"({launches / len(frames):g} per call); {n_disp} deferred dispatches, "
@@ -2373,7 +2448,8 @@ def main() -> int:
     if launches != n_tracked:
         raise AssertionError(f"K1 launched {launches} times over {n_tracked} "
                              f"frames, expected 1 per frame")
-    log(f"  K1 launches over the chain: {launches} ({launches / n_tracked:g} per frame)")
+    log(f"  K1 launches over the chain: {launches} ({launches / n_tracked:g} per frame); "
+        f"{graph_counts(step=scene.step)}")
     cross_check_cpu(scene, outs[0][1])
     check_no_host_sync(scene, device)
 
@@ -2384,6 +2460,11 @@ def main() -> int:
                              f"{DEPTH} frames, expected 1 per frame")
     log(f"[5/12] batched path: {DEPTH} frames equal the one-by-one run exactly; "
         f"K1 launches {batch_launches} ({batch_launches / DEPTH:g} per frame)")
+    traced = count_k1_on_replays(scene, device)
+    log(f"  K1 on the graphed paths, from the card's trace (torch.profiler): {traced} "
+        f"kernels over 3 replays of the one-frame step and one of the {DEPTH}-frame "
+        f"batch, one per frame, as fast_nms.launches counts them; the launches_* "
+        f"fields below count K1 on replays from what each capture saw")
 
     # 6. timing
     _, t_rend, _ = run_chain(scene, device)          # warm: timed run
@@ -2393,9 +2474,11 @@ def main() -> int:
     log(f"[6/12] step ms/frame ({card}): rendered chain median {med:.3f} "
         f"(min {min(t_rend):.3f}, max {max(t_rend):.3f}); random frames "
         f"(widened retry) median {np.median(t_rand):.3f} "
-        f"(max {max(t_rand):.3f})")
+        f"(max {max(t_rand):.3f}); "
+        f"{graph_counts(step=scene.step, batch=scene.batch)}")
     total = sum(t_span)
-    log(f"  split of one rendered-chain run with stage events ({len(t_span)} "
+    log(f"  split of one rendered-chain run of the step's body (eager) with stage "
+        f"events ({len(t_span)} "
         f"frames, {total:.3f} ms, median {np.median(t_span):.3f} ms/frame): " +
         ", ".join(f"{k} {v:.3f} ms ({v / total:.4f})" for k, v in spans.items()) +
         "; optimize_pose runs inside the stages")
@@ -2512,7 +2595,9 @@ def main() -> int:
     # launches: the one-frame chain's, the batch's, the synchronous mono
     # system run's, the synchronous dual walk's, the loop run's, the run
     # path's, the deployment run's and the mesh-attached system's, each
-    # counted from 0 just before its path ran; times: the pyramid launch, as
+    # counted from 0 just before its path ran (a graph's replay adds the K1
+    # launches its capture saw; phase 5 holds that against the card's
+    # trace); times: the pyramid launch, as
     # every path calls it, on the main path's own data
     print(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda",

@@ -12,21 +12,25 @@ re-orthonormalization and the velocity update.
 
 The step never reads a value back to the host: the reference's widened
 retry (a lax.cond) is a device-side select here, so a frame is one stream
-of kernel launches (what a later CUDA graph capture needs).
+of kernel launches.  On the card the step is that stream captured once as a
+CUDA graph and replayed (GraphedStep): one graph launch per frame or per
+batch instead of ~18,400 kernel launches from Python per frame.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from orbslam2_dualcam_tpu_torch.utils.config import BAConfig, SystemConfig
-from orbslam2_dualcam_tpu_torch.ops import camera, epipolar, lie, matching, orb
+from orbslam2_dualcam_tpu_torch.ops import (camera, epipolar, fast_nms, lie,
+                                           matching, orb)
 from orbslam2_dualcam_tpu_torch.ops.camera import CameraRig
 from orbslam2_dualcam_tpu_torch.optim import pose_opt
 from orbslam2_dualcam_tpu_torch.utils.device import resolve_device
+from orbslam2_dualcam_tpu_torch.utils.profiling import span
 from orbslam2_dualcam_tpu_torch.vocab import bow
 
 
@@ -274,11 +278,144 @@ def _checked_device(rig: CameraRig, voc: Optional[bow.Vocabulary],
     return device
 
 
-def _checked_body(cfg: SystemConfig, n_feats: int,
-                  voc: Optional[bow.Vocabulary], rig: CameraRig, device):
-    """The step on `device`, after `_checked_device`."""
-    device = _checked_device(rig, voc, device)
-    return _make_track_body(cfg, n_feats, voc, rig, device)
+def _map_leaves(fn, tree):
+    """`fn` over every tensor of a (nested) tuple or NamedTuple, in a tree
+    of the same types."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    items = [_map_leaves(fn, t) for t in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+
+
+class _Graph(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    inputs: list          # static input buffers, one per argument
+    outputs: tuple        # the captured outputs, rewritten by each replay
+    k1_launches: int      # K1 launches captured, so made by each replay
+    keep: tuple           # cached tensors the graph reads by address
+
+
+class GraphedStep:
+    """A tracking step on the card, replayed from CUDA graphs of itself.
+
+    The step is thousands of small kernels, so launching them from Python,
+    not running them, sets its time.  Each key (the device, shape and dtype
+    of every argument) runs its first call eagerly, which fills what the
+    step caches (the ORB tables, cuBLAS's handles, K1's library).  Its
+    second call captures the step on a side stream into a CUDA graph; that
+    call and every later one copy the arguments into the graph's static
+    inputs, replay the graph on the current stream, and return one fresh
+    copy of each output leaf, which the caller owns: a later call never
+    overwrites an earlier call's results.  A replay runs the eager call's
+    kernels with the same arguments, K1 included (its launches are added to
+    `fast_nms.launches` at each replay).
+
+    The graphs of one step share a memory pool (their replays are
+    serialized on the caller's stream).  Steps do not share one: a pool
+    whose graphs have all been freed cannot take a new capture.
+
+    A capture that raises leaves its key eager from then on; it is counted
+    in `failures` and passed to `on_failure` (the tracker records it as an
+    event).  On the CPU every call is the body's.
+
+    `captures`, `replays` and `eager` count the calls of each kind; on the
+    card each call is also a span `tracker.step` whose `graph` attribute is
+    its kind."""
+
+    _WARM, _FAILED = "warm", "failed"
+
+    def __init__(self, body: Callable, device: torch.device,
+                 constants: Optional[Callable] = None,
+                 on_failure: Optional[Callable[[str], None]] = None) -> None:
+        """`constants(*args)` returns the cached tensors outside `body`'s
+        closure that the step reads, kept alive with the key's graph."""
+        self.body = body
+        self.device = device
+        self._constants = constants
+        self._on_failure = on_failure
+        self.captures = self.replays = self.eager = 0
+        self.failures: List[str] = []
+        # key -> _WARM (its eager call ran), _FAILED (its capture raised)
+        # or its _Graph
+        self._keys: dict = {}
+        self._pool = None           # the graphs' memory pool, made at need
+
+    def __call__(self, *args):
+        if self.device.type != "cuda":
+            self.eager += 1
+            return self.body(*args)
+        key = tuple((a.device, a.dtype, tuple(a.shape)) for a in args)
+        state = self._keys.get(key)
+        mode = ("replay" if isinstance(state, _Graph) else
+                "capture" if state == self._WARM else "eager")
+        with span("tracker.step", graph=mode) as sp:
+            if mode == "replay":
+                self.replays += 1
+                return self._replay(state, args)
+            if mode == "capture":
+                try:
+                    g = self._capture(key, args)
+                except Exception as exc:
+                    self._fail(key, exc)
+                    sp.set(graph="eager")
+                else:
+                    self.captures += 1
+                    return self._replay(g, args)
+            out = self.body(*args)
+            self._keys.setdefault(key, self._WARM)
+            self.eager += 1
+            return out
+
+    def _capture(self, key, args) -> _Graph:
+        inputs = [a.clone() for a in args]
+        keep = self._constants(*args) if self._constants is not None else ()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        k1 = fast_nms.fast_nms.launches
+        stream = torch.cuda.current_stream(self.device)
+        try:
+            # thread_local: the mapping thread may launch meanwhile
+            with torch.cuda.device(self.device), torch.cuda.graph(
+                    graph, pool=self._pool, capture_error_mode="thread_local"):
+                outputs = self.body(*inputs)
+        finally:
+            n_k1 = fast_nms.fast_nms.launches - k1
+            fast_nms.fast_nms.launches = k1     # nothing ran yet
+            # a capture that fails to end leaves its side stream current
+            torch.cuda.set_stream(stream)
+        g = self._keys[key] = _Graph(graph, inputs, outputs, n_k1, keep)
+        return g
+
+    @staticmethod
+    def _replay(g: _Graph, args):
+        for buf, a in zip(g.inputs, args):
+            buf.copy_(a)
+        g.graph.replay()
+        fast_nms.fast_nms.launches += g.k1_launches
+        return _map_leaves(torch.clone, g.outputs)
+
+    def _fail(self, key, exc: Exception) -> None:
+        self._keys[key] = self._FAILED
+        self._pool = None       # the next capture takes a pool of its own
+        shapes = " ".join(f"{tuple(s)}:{str(d).replace('torch.', '')}"
+                          for _, d, s in key)
+        first = (str(exc).splitlines() or [""])[0]
+        msg = f"graph capture failed ({shapes}): {type(exc).__name__}: {first}"
+        self.failures.append(msg)
+        if self._on_failure is not None:
+            self._on_failure(msg)
+
+
+def _step_constants(cfg: SystemConfig, voc: Optional[bow.Vocabulary]):
+    """The cached tensors the step reads besides its arguments and its
+    closure: the ORB tables of the image size, and the byte popcount table
+    of the vocabulary's quantization."""
+    def constants(images, *_):
+        dev = images.device
+        return (orb._tables(*images.shape[-2:], cfg.orb, dev),
+                bow._byte_popcount(dev) if voc is not None else None)
+    return constants
 
 
 def make_extract_fn(cfg: SystemConfig, n_feats: int,
@@ -300,7 +437,8 @@ def make_extract_fn(cfg: SystemConfig, n_feats: int,
 
 
 def make_track_fn(cfg: SystemConfig, n_feats: int,
-                  voc: Optional[bow.Vocabulary], rig: CameraRig, device=None):
+                  voc: Optional[bow.Vocabulary], rig: CameraRig, device=None,
+                  on_failure: Optional[Callable[[str], None]] = None):
     """Build the fused per-frame tracking step on `device`; None means the
     current CUDA device, and raises where there is none.
 
@@ -310,13 +448,21 @@ def make_track_fn(cfg: SystemConfig, n_feats: int,
     mp_norm [M,3]), all on `device`, and returns (FrameData,
     FusedTrackOut).  prev_slots are the previous frame's matched store
     slots (the reference's last-frame points); the store is the
-    reference's device map store as flat tensors."""
-    return _checked_body(cfg, n_feats, voc, rig, device)
+    reference's device map store as flat tensors.
+
+    The function is a GraphedStep: on the card its calls after the first
+    of a shape replay a CUDA graph of the step, and each returns tensors
+    of its own; `on_failure` gets the message of a capture that failed.
+    Its `body` is the step itself."""
+    device = _checked_device(rig, voc, device)
+    return GraphedStep(_make_track_body(cfg, n_feats, voc, rig, device),
+                       device, _step_constants(cfg, voc), on_failure)
 
 
 def make_track_batch_fn(cfg: SystemConfig, n_feats: int,
                         voc: Optional[bow.Vocabulary], rig: CameraRig,
-                        depth: int, device=None):
+                        depth: int, device=None,
+                        on_failure: Optional[Callable[[str], None]] = None):
     """Depth-D batched variant of make_track_fn: the step run over a
     [D, ncam, H, W] image stack, chaining the pose, velocity and
     matched-slot carries on the device (the reference's lax.scan over the
@@ -326,11 +472,13 @@ def make_track_batch_fn(cfg: SystemConfig, n_feats: int,
     The returned function takes the arguments of the one-frame step with
     images [D, ncam, H, W] and returns (carry, fds, outs): carry =
     (T_cw, V_new, mp_slots) after the last frame, fds a FrameData and outs
-    a FusedTrackOut with a leading axis D on every leaf."""
+    a FusedTrackOut with a leading axis D on every leaf.  Like the
+    one-frame step, it is a GraphedStep."""
     depth = int(depth)
     if depth < 1:
         raise ValueError(f"make_track_batch_fn: depth {depth} < 1")
-    body = _checked_body(cfg, n_feats, voc, rig, device)
+    device = _checked_device(rig, voc, device)
+    body = _make_track_body(cfg, n_feats, voc, rig, device)
 
     def track_batch(images, T_last, V, prev_slots, cam_enabled, mp_pos,
                     mp_desc, mp_valid, mp_max, mp_min, mp_norm):
@@ -347,7 +495,8 @@ def make_track_batch_fn(cfg: SystemConfig, n_feats: int,
             outs.append(out)
         return carry, _stack_leaves(fds), _stack_leaves(outs)
 
-    return track_batch
+    return GraphedStep(track_batch, device, _step_constants(cfg, voc),
+                       on_failure)
 
 
 def project_and_match_batch(T_preds, feats_uv, feats_desc, feats_level,

@@ -70,6 +70,9 @@ class LocalMapper:
         # 97-108 InterruptBA semantics)
         self.interrupt_check = None
         self.map_lock = None
+        # called once a keyframe's new points are in the map, before its
+        # local BA (the tracker's store waits for them, not for the BA)
+        self.extended = None
         # (K, M, E) padded sizes of each local-BA solve, and the last
         # solve's (problem, result); the solves' times are `ba.solve` spans
         self.ba_shapes: List[tuple] = []
@@ -100,6 +103,8 @@ class LocalMapper:
                         update_point_stats(mp, m, self._T_sc_np,
                                            self.scale_factors)
                 m.update_connections(kf)
+            if self.extended is not None:
+                self.extended()
             if run_ba and m.n_keyframes > 2:
                 with self.timer("local_ba"):
                     self._local_ba(kf)

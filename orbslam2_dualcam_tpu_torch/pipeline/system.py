@@ -125,6 +125,11 @@ class System:
             # (the reference's InterruptBA, LocalMapping.cc:97-108)
             self.mapper.map_lock = self.map_lock
             self.mapper.interrupt_check = lambda: not self._kf_queue.empty()
+            # keyframes handed to the mapping thread, and those whose new
+            # points it has put into the map (LocalMapper.extended)
+            self._kf_cv = threading.Condition()
+            self._kf_handed = self._kf_extended = 0
+            self.mapper.extended = self._keyframe_extended
             self._mapper_thread = threading.Thread(
                 target=self._mapping_loop, daemon=True)
             self._mapper_thread.start()
@@ -143,6 +148,7 @@ class System:
             # with >=2 keyframes queued, defer further insertions
             self.tracker.mapper_busy = \
                 lambda: self._kf_queue.qsize() >= 2
+            self.tracker.mapper_sync = self._wait_for_mapper
         self.viewer = None
         if viewer:
             from orbslam2_dualcam_tpu_torch.viz.live import LiveViewer
@@ -185,6 +191,19 @@ class System:
                     continue
                 with self.map_lock:
                     self.mapper.on_new_keyframe(kf, run_ba=run_ba)
+
+    def _keyframe_extended(self) -> None:
+        with self._kf_cv:
+            self._kf_extended += 1
+            self._kf_cv.notify_all()
+
+    def _wait_for_mapper(self) -> None:
+        """Return once the mapping thread has put the new points of every
+        keyframe handed to it into the map (or has stopped)."""
+        with self._kf_cv:
+            while (self._kf_extended < self._kf_handed
+                   and self._mapper_thread.is_alive()):
+                self._kf_cv.wait(0.05)
 
     def shutdown(self) -> None:
         with self.tracer.activate(), span("system.shutdown"):
@@ -262,4 +281,7 @@ class _AsyncMapperProxy:
         self._system = system
 
     def on_new_keyframe(self, kf, run_ba: bool = True) -> None:
-        self._system._kf_queue.put((kf, run_ba))
+        sys_ = self._system
+        with sys_._kf_cv:
+            sys_._kf_handed += 1
+        sys_._kf_queue.put((kf, run_ba))

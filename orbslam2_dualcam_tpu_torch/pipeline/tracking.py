@@ -238,9 +238,12 @@ class Tracker:
             if cfg.orb.n_init != cfg.orb.n_track else self.extract)
         # fused tracking (frontend.make_track_fn): the whole per-frame hot
         # path as one stream of launches + one batched readback
+        # on the card both steps replay CUDA graphs; a failed capture
+        # leaves its shape eager and is recorded as an event
         self._track_fused = (
             frontend.make_track_fn(cfg, cfg.orb.n_track, voc, rig,
-                                   device=self.device)
+                                   device=self.device,
+                                   on_failure=self._graph_failed)
             if cfg.tracker.fused_tracking else None)
         self._store: Optional[DeviceMapStore] = None
         # deferred (pipelined) mode: dispatch frame k, then read and
@@ -256,6 +259,11 @@ class Tracker:
         # keyframe insertion instead of queueing unboundedly (the
         # reference's idle check, Tracking.cc:1553-1560)
         self.mapper_busy: Optional[Callable[[], bool]] = None
+        # async+deferred mode: returns once the mapping thread has put the
+        # new points of every keyframe handed to it into the map (its
+        # local BA may still run); called unlocked before the pipeline
+        # re-packs the store the next dispatch tracks against
+        self.mapper_sync: Optional[Callable[[], None]] = None
         self._pending = None    # in-flight dispatch (lag-1 or batch form)
         self._carry = None      # (T_cw, V, mp_slots) on the device
         self._batch: List[Tuple] = []   # buffered (u8 images, ts, fid)
@@ -263,7 +271,8 @@ class Tracker:
         self._depth = depth if self.deferred else 1
         self._track_batch = (
             frontend.make_track_batch_fn(cfg, cfg.orb.n_track, voc, rig,
-                                         depth, device=self.device)
+                                         depth, device=self.device,
+                                         on_failure=self._graph_failed)
             if self.deferred and depth > 1 else None)
         self.scale_factors = np.asarray(cfg.orb.scale_factors, np.float32)
         self._level_scales = torch.as_tensor(self.scale_factors,
@@ -429,6 +438,9 @@ class Tracker:
                 and self.last.mp_ids is not None
                 and int((self.last.mp_ids >= 0).sum()) >= 10)
 
+    def _graph_failed(self, msg: str) -> None:
+        self.events.append(f"GRAPHFAIL@{self.frame_id} {msg}")
+
     def _dispatch_fused(self, images: np.ndarray, ts: float,
                         fid: Optional[int] = None):
         """Run the whole tracked frame as one stream of launches + ONE
@@ -501,6 +513,8 @@ class Tracker:
         Map-touching sections run under self._lock(); the readback wait in
         _process_pending runs unlocked so the mapping thread works during
         the device wait."""
+        if self._carry is None:
+            self._sync_mapper()
         with self._lock():
             eligible = (self.state in (self.OK, self.FULL)
                         and not self._force_lost)
@@ -608,12 +622,25 @@ class Tracker:
                         self._host_reprocess(fd2, ts2, fid2)
                     self._abort_pipeline(rescue=True)
                     return self.state
+        self._sync_mapper()
+        with self._lock():
             # repack (sticky) so the NEXT dispatch sees this batch's map
             # updates (new KFs / points / local BA)
             self._refresh_store(self.last, sticky=True)
             if self._store is None or self._store.n_valid < 10:
                 self._abort_pipeline(rescue=True)
         return self.state
+
+    def _sync_mapper(self) -> None:
+        """With the mapping thread: wait (unlocked) until it has
+        triangulated and fused the keyframes handed to it, so the store
+        packed next holds their points.  Without the wait a tracker that
+        outruns the mapper tracks against a map that falls ever further
+        behind the camera and loses it; local BA still runs beside the
+        tracker.  A span `tracker.mapper_wait`."""
+        if self.mapper_sync is not None:
+            with span("tracker.mapper_wait"):
+                self.mapper_sync()
 
     def _relocalize_after_loss(self, frame: HostFrame) -> None:
         self.state = self.LOST

@@ -87,6 +87,10 @@ class _Open:
         self.t0 = _perf_ns()
         return self
 
+    def set(self, **attrs) -> None:
+        """Set attributes of the open span (kept when it closes)."""
+        self.attrs = {**(self.attrs or {}), **attrs}
+
     def __exit__(self, *exc) -> bool:
         t1 = _perf_ns()
         if self.timer is not None:
@@ -109,6 +113,9 @@ class _NoSpan:
 
     def __enter__(self):
         return self
+
+    def set(self, **attrs) -> None:
+        pass
 
     def __exit__(self, *exc) -> bool:
         return False

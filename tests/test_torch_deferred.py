@@ -20,6 +20,10 @@ levels), on the orbit of tests/test_mono_slam.py.
     0.41-0.56 m for the reference and 0.26-0.67 m for the port over
     RANSAC seeds 0-2 (CPU runs when this was written); chip_smoke.py's
     phase 11 gates the mode at full width.
+(d) With the mapping thread, the deferred tracker's wait before it
+    re-packs its store (`Tracker.mapper_sync`) returns once the mapper has
+    put the handed-over keyframes' points into the map, while their local
+    BA still runs, and at once when nothing is pending.
 
 The deferred mode does not compute what the synchronous mode computes (it
 dispatches against a store one batch old), so (b) and (c) hold it to the
@@ -163,3 +167,37 @@ def test_deferred_with_async_mapping():
     assert len(fids) >= len(poses) - 5, (sorted(fids), ev)
     assert sys_.map.n_keyframes >= 4 and sys_.mapper.timer.samples["local_ba"]
     assert sys_.tracker.timer.samples["fused_dispatch"]
+
+
+def test_deferred_tracker_waits_for_the_map_not_for_local_ba():
+    sys_ = System(small_cfg(), voc=None, enable_loop_closing=False,
+                  deferred_tracking=True, async_mapping=True, device="cpu")
+    tr = sys_.tracker
+    assert tr.mapper_sync is not None
+    extended, ba_done, release = threading.Event(), threading.Event(), \
+        threading.Event()
+
+    def on_new_keyframe(kf, run_ba=True):
+        # the mapper's keyframe: its points go into the map, then local BA
+        # runs until the test releases it
+        sys_.mapper.extended()
+        extended.set()
+        release.wait(30)
+        ba_done.set()
+
+    sys_.mapper.on_new_keyframe = on_new_keyframe
+    tr.mapper_sync()                   # nothing handed over: no wait
+    tr.local_mapper.on_new_keyframe(object())
+    tr.mapper_sync()
+    assert extended.is_set() and not ba_done.is_set()
+    tr.local_mapper.on_new_keyframe(object())
+    waiter = threading.Thread(target=tr.mapper_sync, daemon=True)
+    waiter.start()
+    waiter.join(0.3)
+    # the second keyframe waits in the queue behind the first one's BA
+    assert waiter.is_alive() and not ba_done.is_set()
+    release.set()
+    waiter.join(30)
+    assert not waiter.is_alive() and ba_done.is_set()
+    sys_.shutdown()
+    assert not sys_._mapper_thread.is_alive()

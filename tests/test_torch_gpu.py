@@ -119,6 +119,56 @@ def test_fast_nms_rejects_what_the_kernel_does_not_take():
     assert k1.fast_nms.launches == n0
 
 
+class _Chain:
+    """A 4-frame rendered chain at 2 x 240 x 320, 400 features per camera,
+    a 256-slot store seeded from frame 0 with ground-truth depth, and a
+    random vocabulary tree (k=4, depth 2)."""
+
+    H, W, NF, CAP = 240, 320, 400, 256
+
+    def __init__(self):
+        H, W = self.H, self.W
+        cam = dict(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=W, height=H)
+        self.cfg = cfg = SystemConfig(cameras=(CameraConfig(**cam), CameraConfig(
+            **cam, q_sc=(0.0, 0.0, 1.0, 0.0), t_sc=(0.0, 0.0, 0.10))),
+            orb=OrbConfig(n_levels=4))
+        world = synthetic.make_box_world(np.random.default_rng(1), half=6.0,
+                                         tex_size=256)
+        self.poses = synthetic.orbit_trajectory(5, radius=1.5, total_angle=0.3)
+        rig_cpu = make_rig(cfg, "cpu")
+        K, T_sc = rig_cpu.K.numpy(), rig_cpu.T_sc.numpy()
+        self.frames = [np.round(synthetic.render_rig(world, K, T_sc, T, H, W))
+                       .astype(np.uint8) for T in self.poses]
+        self.voc_np = np.random.default_rng(0).integers(0, 2 ** 32, (2000, 8),
+                                                        dtype=np.uint32)
+        f = frontend._extract_frame_body(
+            torch.as_tensor(self.frames[0]), cfg, self.NF, self.voc("cpu"),
+            rig_cpu).feats
+        self.st = synthetic.seed_store(
+            world, K, T_sc, self.poses[0], f.uv.numpy(), f.level.numpy(),
+            desc_to_numpy(f.desc), f.valid.numpy(), cfg.orb.scale_factors,
+            self.CAP)
+
+    def voc(self, device):
+        return bow.train_vocabulary(self.voc_np, branching=4, depth=2, seed=1,
+                                    direct_level=1, device=device)
+
+    def state(self, device):
+        """(T, V, slots, cam_enabled, *store) as the step takes them."""
+        mp = [torch.as_tensor(x, device=device) for x in self.st[:6]]
+        mp[1] = desc_to_torch(self.st.desc, device)
+        return (torch.as_tensor(self.poses[0], dtype=torch.float32, device=device),
+                torch.eye(4, device=device),
+                torch.as_tensor(self.st.slots, device=device),
+                torch.ones(2, dtype=torch.bool, device=device), *mp)
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for t in tree for x in _leaves(t)]
+
+
 @pytest.mark.gpu
 def test_track_chain_on_card_matches_cpu():
     """The fused step on the card against the port on the CPU, over a
@@ -128,41 +178,16 @@ def test_track_chain_on_card_matches_cpu():
     matched slots equal (the CPU run's own agreement with the reference,
     tests/test_torch_track.py)."""
     _card()
-    H, W, NF, CAP = 240, 320, 400, 256
-    cam = dict(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=W, height=H)
-    cfg = SystemConfig(cameras=(CameraConfig(**cam), CameraConfig(
-        **cam, q_sc=(0.0, 0.0, 1.0, 0.0), t_sc=(0.0, 0.0, 0.10))),
-        orb=OrbConfig(n_levels=4))
-    world = synthetic.make_box_world(np.random.default_rng(1), half=6.0,
-                                     tex_size=256)
-    poses = synthetic.orbit_trajectory(5, radius=1.5, total_angle=0.3)
-    rig_cpu = make_rig(cfg, "cpu")
-    K, T_sc = rig_cpu.K.numpy(), rig_cpu.T_sc.numpy()
-    frames = [np.round(synthetic.render_rig(world, K, T_sc, T, H, W)).astype(np.uint8)
-              for T in poses]
-    voc_np = np.random.default_rng(0).integers(0, 2 ** 32, (2000, 8), dtype=np.uint32)
-    f = frontend._extract_frame_body(
-        torch.as_tensor(frames[0]), cfg, NF,
-        bow.train_vocabulary(voc_np, branching=4, depth=2, seed=1, direct_level=1,
-                             device="cpu"),
-        rig_cpu).feats
-    st = synthetic.seed_store(world, K, T_sc, poses[0], f.uv.numpy(),
-                              f.level.numpy(), desc_to_numpy(f.desc),
-                              f.valid.numpy(), cfg.orb.scale_factors, CAP)
+    chain = _Chain()
+    cfg, NF, frames = chain.cfg, chain.NF, chain.frames
 
     def run(device):
-        voc = bow.train_vocabulary(voc_np, branching=4, depth=2, seed=1,
-                                   direct_level=1, device=device)
         # device=None is the current CUDA device
         on_card = device == "cuda"
-        step = frontend.make_track_fn(cfg, NF, voc, make_rig(cfg, device),
+        step = frontend.make_track_fn(cfg, NF, chain.voc(device),
+                                      make_rig(cfg, device),
                                       *(() if on_card else (device,)))
-        mp = [torch.as_tensor(x, device=device) for x in st[:6]]
-        mp[1] = desc_to_torch(st.desc, device)
-        T = torch.as_tensor(poses[0], dtype=torch.float32, device=device)
-        V = torch.eye(4, device=device)
-        s = torch.as_tensor(st.slots, device=device)
-        on = torch.ones(2, dtype=torch.bool, device=device)
+        T, V, s, on, *mp = chain.state(device)
         outs = []
         for img in frames[1:]:
             _, o = step(torch.as_tensor(img, device=device), T, V, s, on, *mp)
@@ -223,6 +248,94 @@ def test_default_device_is_the_card():
     assert torch.equal(carry[0], T) and torch.equal(carry[2], s)
 
 
+@pytest.mark.gpu
+def test_graphed_step_replays_its_body_on_card():
+    """make_track_fn's step on the card, over the rendered chain: the first
+    call runs eagerly, the second captures a CUDA graph, the rest replay
+    it, and every call's outputs equal (torch.equal) the unwrapped body's
+    on the same inputs; K1 is counted once per frame on replays too; a
+    call's outputs are the caller's (unchanged by later calls); another
+    image size makes a graph of its own.  The depth-3 batch likewise."""
+    _card()
+    chain = _Chain()
+    cfg, NF = chain.cfg, chain.NF
+    voc, rig = chain.voc("cuda"), make_rig(chain.cfg)
+    step = frontend.make_track_fn(cfg, NF, voc, rig)
+    body = step.body
+    T, V, s, on, *mp = chain.state("cuda")
+    kept = []
+    for img in chain.frames[1:]:
+        x = torch.as_tensor(img, device="cuda")
+        n0 = k1.fast_nms.launches
+        got = step(x, T, V, s, on, *mp)
+        torch.cuda.synchronize()
+        assert k1.fast_nms.launches == n0 + 1
+        want = body(x, T, V, s, on, *mp)
+        for a, b in zip(_leaves(got), _leaves(want)):
+            assert torch.equal(a, b)
+        kept.append((got, [a.clone() for a in _leaves(got)]))
+        T, V, s = got[1].T_cw, got[1].V_new, got[1].mp_slots
+    n = len(chain.frames) - 1
+    assert (step.eager, step.captures, step.replays) == (1, 1, n - 2)
+    assert step.failures == []
+    for got, copy in kept:
+        assert all(torch.equal(a, b) for a, b in zip(_leaves(got), copy))
+    # another image size: a graph of its own
+    rng = np.random.default_rng(4)
+    small = [torch.as_tensor(rng.integers(0, 256, (2, 120, 160), dtype=np.uint8),
+                             device="cuda") for _ in range(3)]
+    for x in small:
+        got = step(x, *chain.state("cuda"))
+        want = body(x, *chain.state("cuda"))
+        assert all(torch.equal(a, b) for a, b in zip(_leaves(got), _leaves(want)))
+    assert (step.eager, step.captures, step.replays) == (2, 2, n - 1)
+    # the depth-3 batch: eager, capture, replay
+    D = 3
+    batch = frontend.make_track_batch_fn(cfg, NF, voc, rig, D)
+    images = torch.as_tensor(np.stack(chain.frames[1:1 + D]), device="cuda")
+    args = (images, *chain.state("cuda"))
+    outs = []
+    for _ in range(3):
+        n0 = k1.fast_nms.launches
+        got = batch(*args)
+        torch.cuda.synchronize()
+        assert k1.fast_nms.launches == n0 + D
+        want = batch.body(*args)
+        assert all(torch.equal(a, b) for a, b in zip(_leaves(got), _leaves(want)))
+        outs.append(got)
+    assert (batch.eager, batch.captures, batch.replays) == (1, 1, 1)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(outs[0]), _leaves(outs[2])))
+
+
+@pytest.mark.gpu
+def test_failed_graph_capture_runs_eager_and_is_recorded():
+    """A step that reads a value back to the host cannot be captured: its
+    capture raises, the call and every later one of that shape run
+    eagerly with the right result, the failure is counted and passed to
+    on_failure; a graph captured afterwards replays correctly."""
+    _card()
+    seen = []
+
+    def syncing(x):
+        return (x * float(x.sum().item()),)
+
+    step = frontend.GraphedStep(syncing, torch.device("cuda", 0),
+                                on_failure=seen.append)
+    x = torch.arange(6, dtype=torch.float32, device="cuda")
+    outs = [step(x)[0] for _ in range(3)]
+    for o in outs:
+        assert torch.equal(o, x * 15.0)
+    assert (step.eager, step.captures, step.replays) == (3, 0, 0)
+    assert len(step.failures) == 1 and seen == step.failures
+    assert seen[0].startswith("graph capture failed")
+    ok = frontend.GraphedStep(lambda y: (y * 2.0, y + 1.0), torch.device("cuda", 0))
+    for k in range(4):
+        y = torch.full((5,), float(k), device="cuda")
+        a, b = ok(y)
+        assert torch.equal(a, y * 2.0) and torch.equal(b, y + 1.0)
+    assert (ok.eager, ok.captures, ok.replays) == (1, 1, 2)
+
+
 def _small_system_cfg():
     import dataclasses
 
@@ -277,6 +390,41 @@ def test_system_runs_on_the_card_by_default():
     assert init[0].split()[0] == init[1].split()[0], init
     n = [int(e.split("pts=")[1]) for e in init]
     assert abs(n[0] - n[1]) <= 0.05 * n[1], init
+
+
+@pytest.mark.gpu
+def test_deferred_async_system_replays_its_batches():
+    """System(deferred_tracking=True, async_mapping=True) on the card over a
+    36-frame rendered orbit (2.5 degrees per frame), frames fed back to
+    back: the batch's graph is captured while the mapping thread runs, the
+    tracker does not outrun the map (no DROPFRAME@, LOST@ or GRAPHFAIL@),
+    and from the capture to the last frame (before shutdown drains the
+    pipeline) every call of either step is a replay."""
+    _card()
+    from orbslam2_dualcam_tpu_torch.pipeline.system import System
+    world = synthetic.make_box_world(np.random.default_rng(42), half=6.0)
+    poses = synthetic.orbit_trajectory(45, radius=1.5, total_angle=0.5 * np.pi)[:36]
+    sys_ = System(_small_system_cfg(), voc=None, enable_loop_closing=False,
+                  deferred_tracking=True, async_mapping=True)
+    tr = sys_.tracker
+    steps = (tr._track_fused, tr._track_batch)
+    K, T_sc = sys_.rig.K.cpu().numpy(), sys_.rig.T_sc.cpu().numpy()
+    frames = [synthetic.render_rig(world, K, T_sc, T, H=240, W=320) for T in poses]
+    before = None
+    for k, img in enumerate(frames):
+        sys_.track(img, k / 30.0)
+        if before is None and tr._track_batch.captures == 1:
+            before = [(s.eager, s.captures, s.replays) for s in steps]
+            k_capture = k
+    after = [(s.eager, s.captures, s.replays) for s in steps]
+    sys_.shutdown()
+    ev = tr.events
+    assert not [e for e in ev if e.startswith(("DROPFRAME@", "LOST@", "GRAPHFAIL@"))], ev
+    assert before is not None and k_capture < 20, (before, after)
+    for (e0, c0, r0), (e1, c1, r1) in zip(before, after):
+        assert (e1, c1) == (e0, c0), (before, after)
+    assert after[1][2] - before[1][2] >= (len(poses) - k_capture) // 3 - 1
+    assert len(tr.trajectory) >= len(poses) - 8
 
 
 @pytest.mark.gpu

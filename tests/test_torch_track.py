@@ -5,6 +5,8 @@ make_track_batch_fn against the reference's and against the port's own
 one-by-one run.  Both packages run from one config: the port's is the
 reference's through config_from_reference."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,9 +44,11 @@ DEPTH = 3
 N_PREV = 10
 
 
+@functools.lru_cache(maxsize=1)
 def _setup():
     """Rig, vocabulary, frames and a store seeded from frame 0's port
-    extraction (on the CPU): the state both packages get."""
+    extraction (on the CPU): the state both packages get (made once per
+    worker; no test writes into it)."""
     jrig = jcam.make_rig(CFG)
     rng = np.random.default_rng(0)
     jvoc = jbow.train_vocabulary(
@@ -200,6 +204,37 @@ def test_batch_matches_reference(batches):
     np.testing.assert_allclose(carry[0].numpy(), rcarry[0], rtol=0, atol=1e-3)
     np.testing.assert_allclose(carry[1].numpy(), rcarry[1], rtol=0, atol=2e-3)
     assert (carry[2].numpy() == rcarry[2]).mean() >= 0.95
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for t in tree for x in _leaves(t)]
+
+
+def test_step_on_the_cpu_is_its_body():
+    """On the CPU the GraphedStep runs its body: the one-frame step and a
+    depth-2 batch return exactly the unwrapped bodies' outputs, in the same
+    structure; every call counts as eager, and nothing is captured or
+    replayed."""
+    jrig, jvoc, poses, frames, store, slots = _setup()
+    args = (TCFG, N_FEATS, vocab_from_numpy(jvoc, "cpu"),
+            rig_from_numpy(jrig, "cpu"))
+    state = _port_state("cpu", poses, store, slots)
+    step = tfe.make_track_fn(*args, "cpu")
+    batch = tfe.make_track_batch_fn(*args, 2, "cpu")
+    assert isinstance(step, tfe.GraphedStep) and isinstance(batch, tfe.GraphedStep)
+    for fn, body, images in (
+            (step, step.body, frames[1]),
+            (batch, batch.body, np.stack(frames[1:3]))):
+        x = torch.as_tensor(images)
+        got, want = fn(x, *state), body(x, *state)
+        assert [type(t) for t in got] == [type(t) for t in want]
+        assert len(_leaves(got)) == len(_leaves(want))
+        for a, b in zip(_leaves(got), _leaves(want)):
+            assert torch.equal(a, b)
+        assert (fn.eager, fn.captures, fn.replays) == (1, 0, 0)
+        assert fn.failures == []
 
 
 def test_batch_checks_depth_and_device():
